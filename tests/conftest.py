@@ -45,6 +45,9 @@ def pytest_addoption(parser):
 
 
 def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips where there is none "
+        "(on the card: python -m pytest -m cuda tests/test_torch_*.py)")
     if config.getoption("--lockgraph"):
         # install before collection so module-level locks are witnessed
         graph = lockgraph.install([str(REPO_ROOT / "src")],
