@@ -1,0 +1,10 @@
+"""nemotron-4-15b [dense] — GQA kv=8, squared-ReLU MLP, untied embeddings.
+[arXiv:2402.16819; unverified]"""
+from repro_torch.common.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="nemotron-4-15b", family="dense",
+    n_layers=32, d_model=6144, n_heads=48, n_kv_heads=8, head_dim=128,
+    d_ff=24576, vocab=256000, act="relu2", tie_embeddings=False,
+    rope_theta=10000.0, source="arXiv:2402.16819",
+)

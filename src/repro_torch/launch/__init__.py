@@ -1,0 +1,2 @@
+"""Entry points of the port: `launch.serve` (batched serving from the
+store); `launch.mesh` builds the device context they run on."""

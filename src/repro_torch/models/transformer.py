@@ -1,0 +1,249 @@
+"""Decoder-only transformer: the dense family (GQA/MQA, qk-norm,
+GeGLU/SwiGLU/squared-ReLU MLPs), the counterpart of
+`repro/models/transformer.py`.
+
+The stacked layer params (layer axis first) are walked with a Python loop
+over the leading axis in place of `lax.scan`. Weights stay in the param
+dtype and are cast to the compute dtype at each use, as in the reference.
+MLA attention and the MoE FFN are not ported yet and raise. The forward
+keeps no activation checkpointing (`cfg.remat`): it serves inference and
+the parity tests; the train step comes with the training slice.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, NamedTuple, Optional
+
+import torch
+
+from repro_torch.common.config import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models.context import MeshCtx
+from repro_torch.models.params import pdef
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP Queue 1 item 10, remaining "
+        "families)")
+
+
+# ---------------------------------------------------------------------------
+# Parameter definitions
+
+def _attn_defs(cfg: ModelConfig, n: int) -> Dict[str, Any]:
+    if cfg.mla is not None:
+        raise _not_ported("MLA attention")
+    d = cfg.d_model
+    out: Dict[str, Any] = {
+        "w_q": pdef((n, d, cfg.n_heads, cfg.head_dim), (None, "fsdp", "heads", None)),
+        "w_k": pdef((n, d, cfg.n_kv_heads, cfg.head_dim), (None, "fsdp", "kv_heads", None)),
+        "w_v": pdef((n, d, cfg.n_kv_heads, cfg.head_dim), (None, "fsdp", "kv_heads", None)),
+        "w_o": pdef((n, cfg.n_heads, cfg.head_dim, d), (None, "heads", None, "fsdp")),
+    }
+    if cfg.qk_norm:
+        out["q_norm"] = pdef((n, cfg.head_dim), (None, None), "ones")
+        out["k_norm"] = pdef((n, cfg.head_dim), (None, None), "ones")
+    return out
+
+
+def _mlp_defs(cfg: ModelConfig, n: int) -> Dict[str, Any]:
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.act in ("swiglu", "geglu"):
+        return {
+            "w_gate": pdef((n, d, f), (None, "fsdp", "mlp")),
+            "w_up": pdef((n, d, f), (None, "fsdp", "mlp")),
+            "w_down": pdef((n, f, d), (None, "mlp", "fsdp")),
+        }
+    return {
+        "w_in": pdef((n, d, f), (None, "fsdp", "mlp")),
+        "w_out": pdef((n, f, d), (None, "mlp", "fsdp")),
+    }
+
+
+def param_defs(cfg: ModelConfig) -> Dict[str, Any]:
+    if cfg.family == "moe":
+        raise _not_ported("the MoE FFN")
+    n, d = cfg.n_layers, cfg.d_model
+    block: Dict[str, Any] = {
+        "ln_attn": pdef((n, d), (None, None), "ones"),
+        "ln_mlp": pdef((n, d), (None, None), "ones"),
+        "attn": _attn_defs(cfg, n),
+        "mlp": _mlp_defs(cfg, n),
+    }
+    defs = {
+        "embed": pdef((cfg.vocab, d), ("vocab", "fsdp"), "embed"),
+        "ln_f": pdef((d,), (None,), "ones"),
+        "blocks": block,
+    }
+    if not cfg.tie_embeddings:
+        defs["unembed"] = pdef((d, cfg.vocab), ("fsdp", "vocab"), "embed")
+    return defs
+
+
+def _layer(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
+    """Layer i of a stacked param or cache tree (views, no copies)."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# Attention forward (dense GQA), train/prefill and decode variants
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("btd,dhk->bthk", x, w) with w cast to x's dtype."""
+    d, h, k = w.shape
+    return (x @ w.reshape(d, h * k).to(x.dtype)).unflatten(-1, (h, k))
+
+
+def _gqa(x, p, cfg: ModelConfig, positions, *, cache=None, pos=None,
+         window=None):
+    """x (B,T,D). Train/prefill when cache is None; decode otherwise.
+
+    cache: dict(k=(B,S,KH,Dh), v=(B,S,KH,Dh)); pos: (B,) write positions.
+    Decode writes k, v into the cache in place (the reference donates the
+    cache across decode steps). Returns (out, new_cache_or_None).
+    """
+    cdt = x.dtype
+    q = _proj(x, p["w_q"])
+    k = _proj(x, p["w_k"])
+    v = _proj(x, p["w_v"])
+    if cfg.qk_norm:
+        q = L.rms_norm(q, p["q_norm"], cfg.rms_eps)
+        k = L.rms_norm(k, p["k_norm"], cfg.rms_eps)
+    cos, sin = L.rope_freqs(positions, cfg.head_dim, cfg.rope_theta)
+    q = L.apply_rope(q, cos, sin)
+    k = L.apply_rope(k, cos, sin)
+    if cache is None:
+        out = L.attention(q, k, v,
+                          q_positions=positions, kv_positions=positions,
+                          causal=True, window=window, impl=cfg.attn_impl)
+        new_cache = {"k": k, "v": v}
+    else:
+        B = x.shape[0]
+        ck, cv = cache["k"], cache["v"]
+        rows = torch.arange(B, device=x.device)
+        ck[rows, pos] = k[:, 0].to(ck.dtype)
+        cv[rows, pos] = v[:, 0].to(cv.dtype)
+        S = ck.shape[1]
+        out = L.attention(q, ck.to(cdt), cv.to(cdt),
+                          q_positions=torch.zeros((1,), dtype=torch.int32,
+                                                  device=x.device),
+                          kv_positions=torch.arange(S, device=x.device),
+                          causal=False, window=None, kv_len=pos + 1,
+                          chunk=S)
+        new_cache = {"k": ck, "v": cv}
+    H, hd, d = p["w_o"].shape
+    out = out.reshape(*out.shape[:2], H * hd) @ p["w_o"].reshape(
+        H * hd, d).to(cdt)
+    return out, new_cache
+
+
+def _mla(x, p, cfg: ModelConfig, positions, *, cache=None, pos=None):
+    raise _not_ported("MLA attention")
+
+
+# ---------------------------------------------------------------------------
+# Block + full forward
+
+def _ffn(x, p, cfg: ModelConfig, mctx: MeshCtx):
+    if cfg.family == "moe":
+        raise _not_ported("the MoE FFN")
+    cdt = x.dtype
+    return L.mlp(x, {k: v.to(cdt) for k, v in p.items()}, cfg.act)
+
+
+def _block(x, bp, cfg: ModelConfig, mctx: MeshCtx, positions,
+           cache=None, pos=None):
+    h = L.rms_norm(x, bp["ln_attn"], cfg.rms_eps)
+    if cfg.mla is not None:
+        a, new_cache = _mla(h, bp["attn"], cfg, positions, cache=cache, pos=pos)
+    else:
+        a, new_cache = _gqa(h, bp["attn"], cfg, positions, cache=cache, pos=pos)
+    x = x + a
+    h = L.rms_norm(x, bp["ln_mlp"], cfg.rms_eps)
+    x = x + _ffn(h, bp["mlp"], cfg, mctx)
+    if mctx is not None:
+        x = mctx.constraint(x, mctx.batch_spec(None, None))
+    return x, new_cache
+
+
+def _embed_in(params, tokens, cfg: ModelConfig):
+    cdt = getattr(torch, cfg.compute_dtype)
+    # gather, then cast: the same values as the reference's cast-then-gather
+    x = params["embed"][tokens.long()].to(cdt)
+    if cfg.name.startswith("gemma") or cfg.family == "hybrid":
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cdt)
+    return x
+
+
+def _unembed(params, x, cfg: ModelConfig):
+    cdt = x.dtype
+    if cfg.tie_embeddings:
+        return x @ params["embed"].to(cdt).T
+    return x @ params["unembed"].to(cdt)
+
+
+def forward(params, tokens, cfg: ModelConfig, mctx: MeshCtx,
+            collect_cache: bool = False):
+    """tokens (B,T) -> logits (B,T,V) [+ stacked kv cache]."""
+    x = _embed_in(params, tokens, cfg)
+    T = tokens.shape[1]
+    positions = torch.arange(T, device=x.device)
+    caches = []
+    for i in range(cfg.n_layers):
+        x, c = _block(x, _layer(params["blocks"], i), cfg, mctx, positions)
+        if collect_cache:
+            caches.append(c)
+    x = L.rms_norm(x, params["ln_f"], cfg.rms_eps)
+    logits = _unembed(params, x, cfg)
+    if mctx is not None:
+        logits = mctx.constraint(logits, mctx.batch_spec(None, "model"))
+    if not collect_cache:
+        return logits
+    return logits, {key: torch.stack([c[key] for c in caches])
+                    for key in caches[0]}
+
+
+def loss_fn(params, batch, cfg: ModelConfig, mctx: MeshCtx):
+    logits = forward(params, batch["tokens"], cfg, mctx)
+    return L.softmax_xent(logits, batch["labels"], batch.get("mask"))
+
+
+# ---------------------------------------------------------------------------
+# Serving
+
+class CacheSpec(NamedTuple):
+    """Shape and dtype of one cache tensor (no allocation)."""
+    shape: tuple
+    dtype: torch.dtype
+
+
+def cache_spec(cfg: ModelConfig, batch: int, max_len: int,
+               dtype: Optional[torch.dtype] = None):
+    """Specs of the stacked decode cache (L, B, S, KH, Dh)."""
+    if cfg.mla is not None:
+        raise _not_ported("MLA attention")
+    if dtype is None:
+        dtype = getattr(torch, cfg.kv_cache_dtype)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": CacheSpec(shape, dtype), "v": CacheSpec(shape, dtype)}
+
+
+def prefill(params, tokens, cfg: ModelConfig, mctx: MeshCtx):
+    """Returns (last-token logits (B,V), stacked cache (L,...))."""
+    logits, caches = forward(params, tokens, cfg, mctx, collect_cache=True)
+    return logits[:, -1], caches
+
+
+def decode_step(params, token, pos, cache, cfg: ModelConfig, mctx: MeshCtx):
+    """token (B,), pos (B,) -> (logits (B,V), stacked cache).
+
+    The cache is updated in place and returned."""
+    x = _embed_in(params, token[:, None], cfg)
+    for i in range(cfg.n_layers):
+        x, _ = _block(x, _layer(params["blocks"], i), cfg, mctx,
+                      pos[:, None], cache=_layer(cache, i), pos=pos)
+    x = L.rms_norm(x, params["ln_f"], cfg.rms_eps)
+    logits = _unembed(params, x, cfg)[:, 0]
+    return logits, cache

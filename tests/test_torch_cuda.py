@@ -1,6 +1,7 @@
-"""The port on the CUDA card: the hand-written kernel against its plain
-version, device-direct placement into GPU memory, and the EC path's
-parity legs through the kernel. Every test here needs a card and skips
+"""The port on the CUDA card: the hand-written kernels against their plain
+versions, device-direct placement into GPU memory, the EC path's parity
+legs through rs_matmul, and a small model's prefill through
+flash_attention_fwd. Every test here needs a card and skips
 without one; on the card run them with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -18,6 +19,9 @@ import torch
 
 from repro_torch.core import ROS2Client
 from repro_torch.core.device_direct import DeviceDirectSink
+from repro_torch.kernels.flash_attention import kernel as FK
+from repro_torch.kernels.flash_attention import ops as fops
+from repro_torch.kernels.flash_attention import ref as fref
 from repro_torch.kernels.rs_parity import kernel as K
 from repro_torch.kernels.rs_parity import ops
 from repro_torch.kernels.rs_parity import ref
@@ -162,3 +166,74 @@ def test_read_tensors_land_on_card(cuda_device):
             assert torch.equal(got.reshape(-1).view(torch.uint8).cpu(), src)
     finally:
         c.close()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,T,H,KH,D,causal,window,softcap", [
+    (2, 128, 4, 2, 64, True, None, None),       # GQA
+    (1, 100, 4, 1, 128, True, None, None),      # MQA, ragged
+    (1, 96, 2, 2, 256, True, 32, None),         # window, head_dim 256
+    (1, 64, 2, 2, 64, False, None, 30.0),       # non-causal, softcap
+])
+def test_flash_kernel_matches_plain_version_on_card(
+        cuda_device, B, T, H, KH, D, causal, window, softcap, dtype, tol):
+    """flash_attention_fwd's out and lse against attention_ref on the card,
+    at the reference's tolerances (tests/test_kernels.py:56)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(T + D)
+    q, k, v = (torch.randn(B, T, h, D, generator=gen, device=cuda_device)
+               .to(dtype) for h in (H, KH, KH))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = fops.launches()["fwd"]
+    out, lse = fops.flash_attention(q, k, v, block_q=64, block_k=64,
+                                    return_lse=True, **kw)
+    want, want_lse = fref.attention_ref(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert fops.launches()["fwd"] == before + 1
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, want_lse, atol=tol, rtol=tol)
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
+    q = torch.randn(1, 64, 2, 64, device=cuda_device)
+    with pytest.raises(ValueError):                     # head_dim 32
+        FK.flash_attention_fwd(q[..., :32].contiguous(),
+                               q[..., :32].contiguous(),
+                               q[..., :32].contiguous(), scale=1.0)
+    with pytest.raises(ValueError):                     # mixed dtypes
+        FK.flash_attention_fwd(q, q.bfloat16(), q, scale=1.0)
+    with pytest.raises(ValueError):                     # strided last dim
+        t = torch.randn(1, 64, 2, 128, device=cuda_device)[..., ::2]
+        FK.flash_attention_fwd(t, t, t, scale=1.0)
+    with pytest.raises(RuntimeError, match="training slice"):
+        fops.flash_attention(q.requires_grad_(), q, q)
+
+
+def test_small_model_prefill_through_the_kernel(cuda_device):
+    """A float32 granite-shaped model (head_dim 64): prefill and loss with
+    attn_impl="flash" launch the kernel once per layer and match the plain
+    attention path to 1e-4 (tests/test_flash_integration.py)."""
+    from repro_torch.configs import tiny_config
+    from repro_torch.models.api import ModelAPI
+    from repro_torch.models.context import single_device_ctx
+    from repro_torch.models.params import init_params
+    cfg = tiny_config("granite-3-2b").replace(head_dim=64)
+    flash = ModelAPI(cfg.replace(attn_impl="flash"))
+    plain = ModelAPI(cfg)
+    mctx = single_device_ctx(cfg)
+    params = init_params(flash.param_defs(),
+                         torch.Generator(device=cuda_device).manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 64), dtype=np.int32))
+    with torch.inference_mode():
+        before = fops.launches()["fwd"]
+        lf, cf = flash.prefill(params, {"tokens": toks}, mctx)
+        assert fops.launches()["fwd"] - before == cfg.n_layers
+        lp, cp = plain.prefill(params, {"tokens": toks}, mctx)
+        batch = {"tokens": toks, "labels": toks}
+        loss_f = float(flash.loss(params, batch, mctx))
+        loss_p = float(plain.loss(params, batch, mctx))
+    torch.testing.assert_close(lf, lp, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(cf["k"], cp["k"], atol=1e-4, rtol=1e-4)
+    assert abs(loss_f - loss_p) <= 1e-4 * (1 + abs(loss_p))
