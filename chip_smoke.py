@@ -19,7 +19,11 @@ result):
                256, the serve shape), then times the kernel, its plain
                version and PyTorch's scaled_dot_product_attention (the
                library yardstick, used nowhere in the port) at the serve
-               shape;
+               shape; holds flash_attention_bwd's dq, dk and dv against
+               its plain version in both types (GQA, MQA, window, ragged,
+               head_dim 128 and 256, the train and serve shapes), then
+               times it, its plain version and the backward of
+               scaled_dot_product_attention at the serve and train shapes;
   4. ec        the erasure-coded storage path: a 1 GiB stream written to an
                ec(4,2) container on 8 targets in four fault domains with
                inline encryption, read back, one cell overwritten (delta
@@ -43,11 +47,28 @@ result):
                inputs (bf16, 2e-2), the whole model at full width in
                float32 through its first two layers (logits to 1e-3, every
                first greedy token equal), and a small float32 model's loss
-               to 1e-4.
+               to 1e-4;
+  8. train     the training path at full width, as launch/train.py main
+               walks it: dense-100m (12 layers, d_model 768, vocab 32000)
+               with attn_impl="flash", float32 params computing in bf16
+               from a seed, a synthetic corpus written to a dpu-mode RDMA
+               store and streamed back by the loader (prefetch 2, hedged
+               reads), 30 AdamW steps of 8 x 256 tokens in 2 microbatches,
+               a checkpoint every 10 steps, a storage device killed at
+               step 15 once the checkpoint of step 10 has landed; every
+               batch must equal its corpus slice and the
+               step-30 checkpoint restore bit for bit; one step is traced;
+               the same model cut to 2 layers in float32 takes one step on
+               both attention paths (loss to 1e-4, gradients to atol 2e-4 /
+               rtol 2e-3), and cut to 2 layers in bf16 it trains on the
+               same 30 batches, where its loss must fall (at 12 layers the
+               reference's init keeps the loss flat in 30 steps: printed);
+               then launch/train.py main runs 5 steps through its own
+               command line.
 
 Each kernel's launch counts are zeroed just before the path that drives it
-(rs_matmul: the ec phase; flash_attention_fwd: the serve phase) and read
-just after it. The line before the last is a JSON object of the kernels
+(rs_matmul: the ec phase; flash_attention_fwd: the serve phase;
+flash_attention_bwd: the train phase) and read just after it. The line before the last is a JSON object of the kernels
 (launches, error, times, bound); the last line is the result object.
 """
 from __future__ import annotations
@@ -107,10 +128,10 @@ def traced(fn) -> tuple:
     return prof.key_averages(), wall
 
 
-def kernel_device_ms(fn, iters: int, kernel: str) -> float:
-    """Mean device time of the CUDA kernel named `kernel` per launch, from
-    a torch.profiler trace of `iters` calls of `fn` that recorded every
-    launch. The profiler loses a kernel's record now and then (on an H100:
+def kernel_device_ms(fn, iters: int, kernel: str, per_call: int = 1) -> float:
+    """Mean device time per call of `fn` of the CUDA kernels whose names
+    hold `kernel` (`per_call` launches a call), from a torch.profiler trace
+    of `iters` calls that recorded every launch. The profiler loses a kernel's record now and then (on an H100:
     19 of 20 in most windows once other threads have launched kernels,
     whatever the idle time around the window), so a window that recorded
     fewer launches is traced again, up to TRACE_ATTEMPTS times."""
@@ -126,18 +147,19 @@ def kernel_device_ms(fn, iters: int, kernel: str) -> float:
             if kernel in ev.key:
                 us += ev.device_time_total
                 n += ev.count
-        if n == iters:
-            return us / 1e3 / n
+        if n == iters * per_call:
+            return us / 1e3 / iters
         seen.append(n)
     raise AssertionError(f"profiler saw {seen} launches of {kernel} in "
                          f"windows of {iters} calls")
 
 
 KERNEL_KINDS = (  # substring of a CUDA kernel's name -> what it does
-    ("flash_fwd_kernel", "flash"), ("rs_matmul", "parity"),
-    ("nvjet", "matmul"), ("gemm", "matmul"), ("gemv", "matmul"),
-    ("xmma", "matmul"), ("cutlass", "matmul"), ("direct_copy", "cast/copy"),
-    ("Memcpy", "cast/copy"), ("Memset", "fill"))
+    ("flash_fwd_kernel", "flash fwd"), ("flash_bwd_", "flash bwd"),
+    ("rs_matmul", "parity"), ("nvjet", "matmul"), ("gemm", "matmul"),
+    ("gemv", "matmul"), ("xmma", "matmul"), ("cutlass", "matmul"),
+    ("direct_copy", "cast/copy"), ("Memcpy", "cast/copy"),
+    ("Memset", "fill"), ("elementwise", "optimizer/elementwise"))
 
 
 def device_breakdown(fn) -> dict:
@@ -157,7 +179,7 @@ def device_breakdown(fn) -> dict:
     busy = sum(kinds.values())
     return {"wall_s": wall, "device_busy_s": busy,
             "idle_share": 1.0 - busy / wall, "device_s_by_kind": kinds,
-            "device_ops_by_kind": counts}
+            "device_ops": sum(counts.values()), "device_ops_by_kind": counts}
 
 
 def check(cond: bool, what: str) -> None:
@@ -179,6 +201,7 @@ def build_phase() -> dict:
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import kernel_bwd as FKB
     from repro_torch.kernels.rs_parity import kernel as RK
 
     def timed(build) -> float:
@@ -187,12 +210,14 @@ def build_phase() -> dict:
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2, thread_name_prefix="nvcc") as ex:
-        futs = {"rs_parity": ex.submit(timed, RK.build),
-                "flash_attention_fwd": ex.submit(timed, FK.build)}
+    builds = {"rs_parity": RK.build, "flash_attention_fwd": FK.build,
+              "flash_attention_bwd": FKB.build}
+    with ThreadPoolExecutor(max_workers=len(builds),
+                            thread_name_prefix="nvcc") as ex:
+        futs = {name: ex.submit(timed, b) for name, b in builds.items()}
         secs = {name: fut.result() for name, fut in futs.items()}
     secs["all"] = time.perf_counter() - t0
-    for name in ("rs_parity", "flash_attention_fwd"):
+    for name in builds:
         print(f"{name} built in {secs[name]:.3f} s")
         for line in _build.build_logs.get(name, "").splitlines():
             if ("registers" in line or "spill" in line or "smem" in line
@@ -511,6 +536,134 @@ def flash_phase(seed: int) -> dict:
             "library_ms": library_ms, **bound}
 
 
+# -- phase 3, continued: the flash backward against its plain version ---------
+BWD_CASES = [  # B, T, H, KH, D, window: the reference's (tests/test_kernels.py
+    # :275-283), head_dim 256, and the shapes the train and serve paths give
+    (1, 128, 4, 2, 64, None),       # GQA
+    (2, 64, 4, 1, 64, None),        # MQA
+    (1, 128, 2, 2, 64, 32),         # local window
+    (1, 100, 2, 2, 64, None),       # ragged T
+    (1, 128, 2, 2, 128, None),      # head_dim 128
+    (2, 200, 4, 2, 256, None),      # head_dim 256, ragged
+    (4, 256, 12, 4, 64, None),      # the train shape
+    (4, 1024, 32, 8, 64, None),     # the serve shape
+]
+TRAIN_SHAPE = (4, 256, 12, 4, 64)   # one microbatch of dense-100m's step
+# tests/test_kernels.py:303, the reference's backward tolerances
+BWD_TOL = {"bfloat16": 5e-2, "float32": 2e-4}
+
+
+def flash_bwd_bound(B: int, T: int, H: int, KH: int, D: int,
+                    elem: int) -> dict:
+    """The least time an H100 SXM could take for the causal backward at
+    this shape: the larger of the five products' operations (10 D FLOP
+    per unmasked (q, k) pair) over the bf16 tensor-core peak and the bytes
+    (q, k, v, out, dout, dq, dk, dv in the input type and lse, delta in
+    float32, each once) over HBM's rate."""
+    pairs = B * H * T * (T + 1) // 2
+    flops = 10 * D * pairs
+    nbytes = (4 * B * T * H * D + 4 * B * T * KH * D) * elem + 8 * B * H * T
+    ops_ms = flops / BF16_FLOPS * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"flops": flops, "bytes": nbytes, "ops_ms": ops_ms,
+            "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def flash_bwd_phase(seed: int) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel_bwd as KB
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+
+    def inputs(B, T, H, KH, D, dt):
+        return [torch.randn(B, T, h, D, generator=gen, device="cuda").to(dt)
+                for h in (H, KH, KH, H)]
+
+    worst = {"bfloat16": 0.0, "float32": 0.0}
+    n_checks = 0
+    for dname in ("bfloat16", "float32"):
+        dt, tol = getattr(torch, dname), BWD_TOL[dname]
+        for B, T, H, KH, D, window in BWD_CASES:
+            q, k, v, dout = inputs(B, T, H, KH, D, dt)
+            scale = D ** -0.5
+            out, lse = ops.flash_attention(q, k, v, window=window,
+                                           return_lse=True)
+            got = ops.flash_attention_backward(q, k, v, out, lse, dout,
+                                               scale=scale, window=window)
+            want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                               scale=scale, causal=True,
+                                               window=window, seq_k=T)
+            torch.cuda.synchronize()
+            what = f"{dname} B={B} T={T} H={H} KH={KH} D={D} window={window}"
+            for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+                check(g.dtype == dt, f"{name} is {g.dtype}: {what}")
+                check(torch.isfinite(g).all().item(),
+                      f"{name} not finite: {what}")
+                err, ok = in_tolerance(g, w, tol)
+                check(ok, f"flash bwd {name} off by {err} (tol {tol}): "
+                      f"{what}")
+                worst[dname] = max(worst[dname], err)
+            n_checks += 1
+            del q, k, v, dout, out, lse, got, want
+    print(f"flash_attention_bwd within tolerance of its plain version in "
+          f"{n_checks} checks of dq, dk and dv; max abs error {worst}")
+
+    # times at the train and serve shapes: `ms` the two kernels' device
+    # time a call (profiler), `call_ms` the backward as autograd runs it
+    # (delta, then both kernels; CUDA events), `library_ms` the backward of
+    # scaled_dot_product_attention alone, given dout
+    shapes = {}
+    for shape_name, (B, T, H, KH, D) in (("train", TRAIN_SHAPE),
+                                         ("serve", SERVE_SHAPE)):
+        q, k, v, dout = inputs(B, T, H, KH, D, torch.bfloat16)
+        scale = D ** -0.5
+        out, lse = ops.flash_attention(q, k, v, return_lse=True)
+        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
+        delta = delta.contiguous()
+        ms = kernel_device_ms(lambda: KB.flash_attention_bwd(
+            q, k, v, dout, lse, delta, scale=scale), 20, KB.KERNEL_NAME,
+            per_call=KB.KERNELS_PER_CALL)
+        call_ms = cuda_ms(lambda: ops.flash_attention_backward(
+            q, k, v, out, lse, dout, scale=scale), 20)
+        plain_ms = cuda_ms(lambda: ref.flash_attention_bwd_ref(
+            q, k, v, out, lse, dout, scale=scale, causal=True, window=None,
+            seq_k=T), 3)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                 enable_gqa=True)
+        dot = dout.transpose(1, 2)
+        library_ms = cuda_ms(lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), dot, retain_graph=True), 20)
+        lib = torch.autograd.grad(lib_out, (qt, kt, vt), dot)
+        mine = ops.flash_attention_backward(q, k, v, out, lse, dout,
+                                            scale=scale)
+        for g, w, name in zip(mine, lib, ("dq", "dk", "dv")):
+            err, ok = in_tolerance(g, w.transpose(1, 2), BWD_TOL["bfloat16"])
+            check(ok, f"flash bwd {name} differs from the library's by {err}"
+                  f" at the {shape_name} shape")
+        bound = flash_bwd_bound(B, T, H, KH, D, q.element_size())
+        shapes[shape_name] = {
+            "shape": dict(zip(("B", "T", "H", "KH", "D"), (B, T, H, KH, D))),
+            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, **bound}
+        print(f"flash_attention_bwd at the {shape_name} shape (B={B}, T=S={T}"
+              f", H={H}, KH={KH}, D={D}, bf16, causal): kernels {ms:.6f} ms "
+              f"on the device, {call_ms:.6f} ms a call, plain "
+              f"{plain_ms:.6f} ms, scaled_dot_product_attention backward "
+              f"{library_ms:.6f} ms; bound {bound['bound_ms']:.6f} ms by "
+              f"{bound['bound_by']}: {bound['flops']} FLOP / "
+              f"{BF16_FLOPS:.3g} FLOP/s = {bound['ops_ms']:.6f} ms, "
+              f"{bound['bytes']} B / {HBM_BYTES_PER_S:.3g} B/s = "
+              f"{bound['bytes_ms']:.6f} ms")
+        del q, k, v, dout, out, lse, delta, qt, kt, vt, lib_out, lib, mine
+    return {"max_abs_err": max(worst.values()),
+            "max_abs_err_by_dtype": worst, "shapes": shapes}
+
+
 # -- phase 7: serving granite-3-2b at full width from the store ---------------
 SERVE_REQUESTS, SERVE_BATCH, SERVE_PLEN, SERVE_MAX_NEW = 8, 4, 1024, 32
 SHALLOW_LAYERS = 2          # depth of the float32 whole-model check
@@ -724,6 +877,293 @@ def serve_phase(seed: int, times: dict) -> dict:
     return stats
 
 
+# -- phase 8: training dense-100m at full width from the store ----------------
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICROBATCHES = 30, 8, 256, 2
+TRAIN_CKPT_EVERY, TRAIN_DRILL_AT = 10, 15
+TRAIN_MAIN_ARGS = ["--arch", "dense-100m", "--steps", "5", "--global-batch",
+                   "8", "--seq", "256", "--microbatches", "2",
+                   "--ckpt-every", "5", "--inject-failure-at", "3"]
+
+
+def _host_bytes(t) -> np.ndarray:
+    import torch
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return t.numpy().reshape(-1).view(np.uint8)
+
+
+def _state_leaves(params, opt) -> list:
+    """The leaves of a train state (params and AdamState) in one order."""
+    from repro_torch.models.params import tree_leaves
+    return [opt.step, *tree_leaves(opt.m), *tree_leaves(opt.v),
+            *tree_leaves(params)]
+
+
+def train_phase(seed: int, times: dict) -> dict:
+    import torch
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core import ROS2Client
+    from repro_torch.data.pipeline import (Assignment, ROS2TokenLoader,
+                                           write_token_shards)
+    from repro_torch.distributed.checkpoint import ROS2CheckpointManager
+    from repro_torch.distributed.fault import (FailureInjector,
+                                               StragglerMonitor)
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_host_mesh_ctx
+    from repro_torch.models.api import ModelAPI
+    from repro_torch.models.params import (count_params, init_params,
+                                           tree_leaves, tree_map)
+    from repro_torch.train.optimizer import init_adam
+    from repro_torch.train.trainer import make_train_step, value_and_grad
+
+    cfg = get_config("dense-100m").replace(attn_impl="flash")
+    api = ModelAPI(cfg)
+    mctx = make_host_mesh_ctx(cfg)
+    dev = mctx.device
+    need = TRAIN_STEPS * TRAIN_BATCH * (TRAIN_SEQ + 1) + TRAIN_SEQ + 1
+    t0 = time.perf_counter()
+    tokens = launch_train.synth_tokens(cfg.vocab, need, seed)
+    times["train_corpus_s"] = time.perf_counter() - t0
+    client = ROS2Client(mode="dpu", transport="rdma", n_devices=4)
+    loader = None
+    stats: dict = {}
+    try:
+        t0 = time.perf_counter()
+        write_token_shards(client, "/data", tokens)
+        times["train_shards_s"] = time.perf_counter() - t0
+        loader = ROS2TokenLoader(client, "/data", global_batch=TRAIN_BATCH,
+                                 seq_len=TRAIN_SEQ, prefetch=2,
+                                 hedge_timeout_s=0.5)
+        tcfg = TrainConfig(lr=1e-3, total_steps=TRAIN_STEPS,
+                           warmup_steps=max(1, TRAIN_STEPS // 10),
+                           num_microbatches=TRAIN_MICROBATCHES)
+        step_fn = make_train_step(api, tcfg, mctx)
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = init_params(api.param_defs(), gen,
+                             getattr(torch, cfg.param_dtype), dev)
+        opt = init_adam(params)
+        torch.cuda.synchronize()
+        times["train_init_s"] = time.perf_counter() - t0
+        n_params = count_params(api.param_defs())
+        print(f"dense-100m: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+              f"vocab {cfg.vocab}, {n_params} params ({cfg.param_dtype}, "
+              f"computing in {cfg.compute_dtype}) on the card")
+        ckpt = ROS2CheckpointManager(client, "/ckpt", keep=2)
+        mon = StragglerMonitor()
+        injector = FailureInjector(client.store)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        losses, gnorms, step_s, batches, snapshot_s = [], [], [], [], []
+        t_run = time.perf_counter()
+        for step in range(TRAIN_STEPS):
+            if step == TRAIN_DRILL_AT:
+                # the checkpoint of step 10 lands first: a write in flight
+                # when one of its devices dies misses its quorum and the
+                # manager retries nothing, in the reference as in the port
+                # (ROADMAP Queue 3; tests/test_torch_checkpoint.py)
+                ckpt.wait()
+                victim = client.devices[0].name
+                injector.kill(victim)
+                print(f"[drill] killed storage device {victim} before step "
+                      f"{step + 1}")
+            t0 = time.perf_counter()
+            host = loader.next_batch()
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+            params, opt, metrics = step_fn(params, opt, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            mon.record(0, step_s[-1])
+            losses.append(float(metrics["loss"]))
+            gnorms.append(float(metrics["grad_norm"]))
+            batches.append(host)
+            if (step + 1) % TRAIN_CKPT_EVERY == 0:
+                t0 = time.perf_counter()
+                ckpt.save(step + 1, {"params": params, "opt": opt})
+                snapshot_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        ckpt.wait()
+        last_write_s = time.perf_counter() - t0
+        wall = time.perf_counter() - t_run
+        launches = ops.launches()
+        peak = torch.cuda.max_memory_allocated()
+        lm = loader.metrics()
+        dpu_ops = client.dpu.ops_processed
+
+        for i, (loss, gn) in enumerate(zip(losses, gnorms)):
+            check(np.isfinite(loss) and np.isfinite(gn),
+                  f"step {i + 1}: loss {loss}, grad norm {gn}")
+        # not checked at full depth: with the reference's fan-in init the
+        # 12-layer model's gradient norm explodes with depth and neither
+        # package's loss moves beyond noise in 30 steps of these flags
+        # (tools/train_loss_witness.py); the cut model below is checked
+        first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+        want_bwd = cfg.n_layers * TRAIN_MICROBATCHES * TRAIN_STEPS
+        check(launches["bwd"] >= want_bwd, f"flash_attention_bwd launched "
+              f"{launches['bwd']} times, fewer than {want_bwd}")
+        check(launches["bwd_softcap"] == 0, "the softcap backward ran")
+        n_samples = need // (TRAIN_SEQ + 1)
+        asg = Assignment(n_samples, TRAIN_BATCH, 0, 1, 0, 0)
+        check(asg.steps_per_epoch() >= TRAIN_STEPS, "corpus under an epoch")
+        for i, b in enumerate(batches):
+            rows = np.stack([tokens[j * (TRAIN_SEQ + 1):(j + 1) * (
+                TRAIN_SEQ + 1)] for j in asg.samples_for_step(i)])
+            check(np.array_equal(b["tokens"], rows[:, :-1])
+                  and np.array_equal(b["labels"], rows[:, 1:]),
+                  f"batch {i} differs from its corpus slice")
+        # prefetch holds at most 2 batches and one in hand: every batch
+        # from step TRAIN_DRILL_AT + 3 on was read after the kill
+        after_drill = TRAIN_STEPS - (TRAIN_DRILL_AT + 3)
+
+        t0 = time.perf_counter()
+        got_step, state = ckpt.restore({"params": params, "opt": opt})
+        restore_s = time.perf_counter() - t0
+        check(got_step == TRAIN_STEPS, f"restored step {got_step}")
+        saved = _state_leaves(params, opt)
+        restored = _state_leaves(state["params"], state["opt"])
+        check(len(saved) == len(restored), "restored tree differs")
+        restored_bytes = 0
+        for a, b in zip(restored, saved):
+            a = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+            check(np.array_equal(a, _host_bytes(b)),
+                  "restored checkpoint differs from the saved state")
+            restored_bytes += a.size
+        del state, restored
+        stats.update({
+            "steps": TRAIN_STEPS, "tokens": TRAIN_STEPS * TRAIN_BATCH
+            * TRAIN_SEQ, "wall_s": wall,
+            "tokens_per_s": TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ / wall,
+            "step_s_median": float(np.median(step_s)),
+            "step_s_min": min(step_s), "step_s_max": max(step_s),
+            "step_s": step_s, "losses": losses, "grad_norms": gnorms,
+            "loss_first5": first, "loss_last5": last,
+            "loader_stall_s": lm["stall_s"],
+            "loader_stall_share": lm["stall_s"] / wall,
+            "loader_read_s": lm["read_s"],
+            "hedges_issued": lm["hedges_issued"],
+            "hedges_won": lm["hedges_won"], "dpu_ops": dpu_ops,
+            "stragglers": mon.stragglers(),
+            "ckpt_snapshot_s": snapshot_s, "ckpt_last_write_s": last_write_s,
+            "ckpt_bytes_written": ckpt.bytes_written,
+            "ckpt_saves": ckpt.saves, "ckpt_restore_s": restore_s,
+            "ckpt_restore_bytes": restored_bytes,
+            "peak_mem_gb": peak / 1e9, "flash_launches": launches,
+            "batches_checked_after_drill": after_drill})
+        print(f"[train] {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+              f"tokens: {stats['tokens_per_s']:.3f} tok/s, step "
+              f"{stats['step_s_median']:.6f} s median ({min(step_s):.6f}-"
+              f"{max(step_s):.6f}), loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+              f"(first 5 {first:.4f}, last 5 {last:.4f}), loader stall "
+              f"{lm['stall_s']:.3f} s ({100 * lm['stall_s'] / wall:.2f}%), "
+              f"hedges {int(lm['hedges_issued'])}, DPU ops {dpu_ops}, "
+              f"flash launches {launches}, peak {peak / 1e9:.3f} GB")
+        print(f"[train] checkpoints: {ckpt.saves} saves, "
+              f"{ckpt.bytes_written} B written, snapshots {snapshot_s} s, "
+              f"last write {last_write_s:.3f} s; restore of step "
+              f"{got_step}: {restored_bytes} B in {restore_s:.3f} s, bit "
+              f"for bit; every batch equals its corpus slice ({after_drill} "
+              f"read after the drill)")
+
+        # one more step, traced: where a step's time goes on the card
+        host = loader.next_batch()
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        stats["trace_step"] = device_breakdown(
+            lambda: step_fn(params, opt, batch))
+        print("traced train step:", stats["trace_step"])
+    finally:
+        if loader is not None:
+            loader.close()
+        client.close()
+
+    # the first two layers in float32, one step on each attention path
+    shallow = cfg.replace(n_layers=SHALLOW_LAYERS, compute_dtype="float32")
+    toks = torch.from_numpy(batches[0]["tokens"][:TRAIN_BATCH
+                                                 // TRAIN_MICROBATCHES])
+    labels = torch.from_numpy(batches[0]["labels"][:TRAIN_BATCH
+                                                   // TRAIN_MICROBATCHES])
+    one = {"tokens": toks.to(dev), "labels": labels.to(dev)}
+
+    def shallow_params():
+        cut = dict(params, blocks=first_layers(params["blocks"],
+                                               SHALLOW_LAYERS))
+        return tree_map(lambda t: t.detach().clone(), cut)
+
+    f32 = {}
+    for impl in ("flash", "jnp"):
+        sapi = ModelAPI(shallow.replace(attn_impl=impl))
+        loss, grads = value_and_grad(sapi, shallow_params(), one, mctx)
+        sp = shallow_params()
+        _, sopt, smetrics = make_train_step(sapi, TrainConfig(), mctx)(
+            sp, init_adam(sp), one)
+        check(abs(float(smetrics["loss"]) - float(loss))
+              <= 1e-6 * (1 + abs(float(loss))),
+              f"{impl}: the step's loss differs from its gradient's")
+        f32[impl] = (float(loss), grads)
+    lf, lj = f32["flash"][0], f32["jnp"][0]
+    check(abs(lf - lj) <= 1e-4 + 1e-4 * abs(lj),
+          f"float32 loss flash {lf} vs plain {lj}")
+    grad_err = 0.0
+    for a, b in zip(tree_leaves(f32["flash"][1]), tree_leaves(f32["jnp"][1])):
+        err = (a - b).abs()
+        check(bool(torch.all(err <= 2e-4 + 2e-3 * b.abs())),
+              f"float32 gradient off by {float(err.max())}")
+        grad_err = max(grad_err, float(err.max()))
+    print(f"dense-100m at full width through {SHALLOW_LAYERS} layers in "
+          f"float32, one step: loss flash {lf:.7f}, plain {lj:.7f}; every "
+          f"gradient within atol 2e-4 / rtol 2e-3, max abs difference "
+          f"{grad_err:.3e}")
+    with torch.no_grad():
+        bf16 = {impl: float(ModelAPI(cfg.replace(attn_impl=impl)).loss(
+            params, one, mctx)) for impl in ("flash", "jnp")}
+    # printed, not checked: the reference's fan-in init makes the random
+    # model chaotic in bf16 at full depth (ROADMAP Queue 3)
+    print(f"dense-100m bf16 loss after {TRAIN_STEPS} steps, all "
+          f"{cfg.n_layers} layers: flash {bf16['flash']:.6f}, plain "
+          f"{bf16['jnp']:.6f}")
+    stats.update({"f32_shallow_loss": {"flash": lf, "plain": lj},
+                  "f32_shallow_grad_max_abs_diff": grad_err,
+                  "bf16_loss": bf16})
+
+    # the loss falls: the same widths, flags and batches from the store,
+    # cut to SHALLOW_LAYERS layers, where the reference's init still
+    # trains in 30 steps (tools/train_loss_witness.py)
+    cut = cfg.replace(n_layers=SHALLOW_LAYERS)
+    capi = ModelAPI(cut)
+    cparams = init_params(capi.param_defs(),
+                          torch.Generator(device=dev).manual_seed(seed),
+                          getattr(torch, cut.param_dtype), dev)
+    cstep = make_train_step(capi, tcfg, mctx)
+    copt = init_adam(cparams)
+    closses = []
+    for host in batches:
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        cparams, copt, metrics = cstep(cparams, copt, batch)
+        closses.append(float(metrics["loss"]))
+    cfirst, clast = float(np.mean(closses[:5])), float(np.mean(closses[-5:]))
+    print(f"dense-100m cut to {SHALLOW_LAYERS} layers, the same 30 batches: "
+          f"loss {closses[0]:.5f} -> {closses[-1]:.5f}, first 5 {cfirst:.5f}"
+          f", last 5 {clast:.5f}; at {cfg.n_layers} layers first 5 "
+          f"{stats['loss_first5']:.5f}, last 5 {stats['loss_last5']:.5f}")
+    check(all(np.isfinite(closses)), f"cut model's losses {closses}")
+    check(clast < cfirst, f"the cut model's loss did not fall: first 5 "
+          f"steps {cfirst}, last 5 {clast}")
+    stats.update({"cut_losses": closses, "cut_loss_first5": cfirst,
+                  "cut_loss_last5": clast})
+
+    # launch/train.py main, through its own command line
+    t0 = time.perf_counter()
+    main_loss = launch_train.main(TRAIN_MAIN_ARGS)
+    times["train_main_s"] = time.perf_counter() - t0
+    check(np.isfinite(main_loss), f"launch/train.py main: loss {main_loss}")
+    stats["main_loss"] = main_loss
+    return stats
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -746,6 +1186,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import ROS2Client
     from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import kernel_bwd as FKB
     from repro_torch.kernels.rs_parity import kernel as K
     from repro_torch.kernels.rs_parity import ops
 
@@ -771,6 +1212,7 @@ def main(argv=None) -> int:
         # phases, whose worker threads make the profiler lose more records
         t0 = time.perf_counter()
         flash = flash_phase(args.seed)
+        flash_bwd = flash_bwd_phase(args.seed)
         times["flash_s"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
@@ -811,6 +1253,10 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         serve = serve_phase(args.seed, times)
         times["serve_phase_s"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        train = train_phase(args.seed, times)
+        times["train_phase_s"] = time.perf_counter() - t0
         torch.cuda.synchronize()
     except Exception:
         traceback.print_exc()
@@ -822,6 +1268,8 @@ def main(argv=None) -> int:
     print("phase wall times (s):", json.dumps(times))
     print("direct placement:", json.dumps(direct))
     print("serve:", json.dumps(serve))
+    print("train:", json.dumps(train))
+    bwd = flash_bwd["shapes"]["train"]
     print(json.dumps({"kernels": [{
         "name": "rs_matmul", "route": "cuda", "source": K.SOURCE,
         "replaces": K.REPLACES, "launches": total,
@@ -837,7 +1285,15 @@ def main(argv=None) -> int:
         "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
         "library_ms": flash["library_ms"],
         "max_abs_err_by_dtype": flash["max_abs_err_by_dtype"],
-        "shape": dict(zip(("B", "T", "H", "KH", "D"), SERVE_SHAPE))}]}))
+        "shape": dict(zip(("B", "T", "H", "KH", "D"), SERVE_SHAPE))}, {
+        "name": "flash_attention_bwd", "route": "cuda", "source": FKB.SOURCE,
+        "replaces": FKB.REPLACES, "launches": train["flash_launches"]["bwd"],
+        "max_abs_err": flash_bwd["max_abs_err"], "ms": bwd["ms"],
+        "call_ms": bwd["call_ms"], "plain_ms": bwd["plain_ms"],
+        "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
+        "library_ms": bwd["library_ms"],
+        "max_abs_err_by_dtype": flash_bwd["max_abs_err_by_dtype"],
+        "shape": bwd["shape"], "shapes": flash_bwd["shapes"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,5 +6,6 @@ tensor goes to the kernel, a CPU tensor to the plain PyTorch version)
 and ref.py (the numpy oracle and the plain PyTorch version).
 
   rs_parity       — GF(256) Reed-Solomon parity for ec(k,p) containers
-  flash_attention — online-softmax GQA attention forward (prefill)
+  flash_attention — online-softmax GQA attention, forward (prefill and
+                    training) and backward recomputed from lse (training)
 """

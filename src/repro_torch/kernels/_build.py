@@ -1,8 +1,9 @@
 """Builds a CUDA source of `repro_torch/csrc/` into a shared library with
 `nvcc` on first use and loads it with ctypes.
 
-The library is named by a hash of its sources and flags, so an edited
-source is rebuilt and a built one is reused. The build directory is
+The library is named by a hash of its sources, the headers of csrc/ and
+the flags, so an edited source or header is rebuilt and a built one is
+reused. The build directory is
 `build/kernels/` at the root of the checkout (listed in .gitignore). One
 lock per library serialises the build across threads (the EC path calls
 the kernel from several pools at once) and an exclusive file lock across
@@ -58,7 +59,7 @@ def load(name: str, sources: List[str],
             return lib
         paths = [CSRC / src for src in sources]
         digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for path in paths:
+        for path in paths + sorted(CSRC.glob("*.cuh")):
             digest.update(path.read_bytes())
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         so = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"

@@ -41,13 +41,14 @@ def build() -> None:
     _lib()
 
 
-def _readable(x: torch.Tensor, what: str) -> None:
-    """The kernel reads rows of 16 bytes in place: the last dimension must
-    be contiguous and every row start 16-byte aligned."""
+def readable(x: torch.Tensor, what: str,
+             kernel: str = "flash_attention_fwd") -> None:
+    """The flash kernels read rows of 16 bytes in place: the last dimension
+    must be contiguous and every row start 16-byte aligned."""
     per16 = 16 // x.element_size()
     if (x.stride(-1) != 1 or x.data_ptr() % 16
             or any(s % per16 for s in x.stride()[:-1])):
-        raise ValueError(f"flash_attention_fwd reads {what} in place: its "
+        raise ValueError(f"{kernel} reads {what} in place: its "
                          "last dimension must be contiguous and its rows "
                          f"16-byte aligned, got strides {x.stride()}")
 
@@ -85,7 +86,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not 0 <= seq_k <= S:
         raise ValueError(f"seq_k {seq_k} outside 0..{S}")
     for x, what in ((q, "q"), (k, "k"), (v, "v")):
-        _readable(x, what)
+        readable(x, what)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3],

@@ -1,19 +1,28 @@
-"""Public wrapper for the flash-attention forward kernel.
+"""Public wrapper for the flash-attention kernels, forward and backward.
 
 `flash_attention` has the reference's semantics
 (`repro/kernels/flash_attention/ops.py:106-124`): the scale defaults to
 1/sqrt(D). On the CPU, T and S are padded to block multiples (bq =
 min(block_q, max(8, T)), likewise bk), padded keys are masked through
 seq_k and padded query rows dropped, as the reference pads for its kernel.
-The CUDA kernel takes ragged T and S as they are (it masks keys past S and
-writes no row past T), so on the card nothing is padded and block_q and
-block_k have no effect: the kernel's tiles are its own.
+The CUDA kernels take ragged T and S as they are (they mask keys past S
+and write no row past T), so on the card nothing is padded and block_q and
+block_k have no effect: the kernels' tiles are their own.
 
-A CUDA tensor goes to the hand-written `flash_attention_fwd` kernel — a
-failed build or launch raises, nothing falls back — and a CPU tensor to
-the plain PyTorch version `ref.attention_ref`. The kernel is forward-only:
-on a CUDA tensor that requires grad the wrapper raises (the backward
-kernel comes with the training slice). `LAUNCHES` counts kernel launches.
+It is differentiable, like the reference's custom_vjp: where grad is
+enabled and q, k or v requires it, it runs as `_FlashAttention`, a
+`torch.autograd.Function` whose forward is the forward above and whose
+backward computes delta = rowsum(dout * out) in float32 and then dq, dk
+and dv recomputed from lse, with dk and dv summed over each GQA group
+(`flash_attention_backward`). A CUDA tensor goes to the hand-written
+kernels `flash_attention_fwd` and `flash_attention_bwd` — a failed build
+or launch raises, nothing falls back — and a CPU tensor to the plain
+PyTorch versions in `ref`. Softcap keeps the reference's split
+(`repro/kernels/flash_attention/ops.py:94-100`): its tanh derivative is
+not in the backward kernel, so the softcap backward is autograd through
+the plain `ref.attention_ref`, on either device, counted under
+LAUNCHES["bwd_softcap"]. LAUNCHES["fwd"] and LAUNCHES["bwd"] count kernel
+launches (one per call; the backward call launches its two kernels).
 """
 from __future__ import annotations
 
@@ -25,18 +34,25 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import kernel as K
+from repro_torch.kernels.flash_attention import kernel_bwd as KB
 from repro_torch.kernels.flash_attention import ref
 
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
 
-LAUNCHES: Dict[str, int] = {"fwd": 0}
+LAUNCHES: Dict[str, int] = {"fwd": 0, "bwd": 0, "bwd_softcap": 0}
 _launch_lock = threading.Lock()
+
+
+def _count(key: str) -> None:
+    with _launch_lock:
+        LAUNCHES[key] += 1
 
 
 def reset_launches() -> None:
     with _launch_lock:
-        LAUNCHES["fwd"] = 0
+        for key in LAUNCHES:
+            LAUNCHES[key] = 0
 
 
 def launches() -> Dict[str, int]:
@@ -50,6 +66,86 @@ def _pad_to(x: torch.Tensor, axis: int, mult: int) -> torch.Tensor:
         return x
     widths = [0, 0] * (x.dim() - 1 - axis) + [0, pad]
     return F.pad(x, widths)
+
+
+def _forward(q, k, v, scale, causal, window, softcap, block_q, block_k):
+    """(out, lse) of the forward on q's device."""
+    if q.device.type == "cpu":
+        T, S = q.shape[1], k.shape[1]
+        bq = min(block_q, max(8, T))
+        bk = min(block_k, max(8, S))
+        out, lse = ref.attention_ref(
+            _pad_to(q, 1, bq), _pad_to(k, 1, bk), _pad_to(v, 1, bk),
+            scale=scale, causal=causal, window=window, softcap=softcap,
+            seq_k=S, return_lse=True)
+        return out[:, :T], lse[:, :, :T]
+    out, lse = K.flash_attention_fwd(q, k, v, scale=scale, causal=causal,
+                                     window=window, softcap=softcap)
+    _count("fwd")
+    return out, lse
+
+
+def flash_attention_backward(q, k, v, out, lse, dout, *, scale: float,
+                             causal: bool = True,
+                             window: Optional[int] = None):
+    """dq, dk, dv of flash attention without softcap, from the forward's
+    out and lse: the backward kernel on a CUDA tensor, the plain version
+    on a CPU one. dk and dv are summed over each GQA group, as the
+    reference reduces its per-head kernel outputs
+    (`repro/kernels/flash_attention/ops.py:88-90`)."""
+    if q.device.type == "cpu":
+        dq, dk, dv = ref.flash_attention_bwd_ref(
+            q, k, v, out, lse, dout, scale=scale, causal=causal,
+            window=window, seq_k=k.shape[1])
+    else:
+        # delta in float32 outside the kernel, as the reference computes it
+        # (repro/kernels/flash_attention/kernel_bwd.py:140-141)
+        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
+        dq, dk, dv = KB.flash_attention_bwd(
+            q, k, v, dout.contiguous(), lse.contiguous(),
+            delta.contiguous(), scale=scale, causal=causal, window=window)
+        _count("bwd")
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _softcap_backward(q, k, v, dout, *, scale, causal, window, softcap):
+    """The reference's softcap split: autograd through the plain version."""
+    with torch.enable_grad():
+        qkv = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = ref.attention_ref(*qkv, scale=scale, causal=causal,
+                                window=window, softcap=softcap)
+        grads = torch.autograd.grad(out, qkv, dout)
+    _count("bwd_softcap")
+    return grads
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention with its backward: returns (out, lse); lse carries
+    no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, window, softcap, block_q,
+                block_k):
+        out, lse = _forward(q, k, v, scale, causal, window, softcap,
+                            block_q, block_k)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (scale, causal, window, softcap)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        scale, causal, window, softcap = ctx.args
+        if softcap is None:
+            grads = flash_attention_backward(q, k, v, out, lse, dout,
+                                             scale=scale, causal=causal,
+                                             window=window)
+        else:
+            grads = _softcap_backward(q, k, v, dout, scale=scale,
+                                      causal=causal, window=window,
+                                      softcap=softcap)
+        return (*grads, None, None, None, None, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -67,23 +163,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cpu":
-        T, S = q.shape[1], k.shape[1]
-        bq = min(block_q, max(8, T))
-        bk = min(block_k, max(8, S))
-        out, lse = ref.attention_ref(
-            _pad_to(q, 1, bq), _pad_to(k, 1, bk), _pad_to(v, 1, bk),
-            scale=scale, causal=causal, window=window, softcap=softcap,
-            seq_k=S, return_lse=True)
-        out, lse = out[:, :T], lse[:, :, :T]
+    args = (float(scale), bool(causal), window, softcap, int(block_q),
+            int(block_k))
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        out, lse = _FlashAttention.apply(q, k, v, *args)
     else:
-        if torch.is_grad_enabled() and any(
-                x.requires_grad for x in (q, k, v)):
-            raise RuntimeError(
-                "flash_attention on the card is forward-only: the backward "
-                "kernel (flash_attention_bwd) comes with the training slice")
-        out, lse = K.flash_attention_fwd(q, k, v, scale=scale, causal=causal,
-                                         window=window, softcap=softcap)
-        with _launch_lock:
-            LAUNCHES["fwd"] += 1
+        out, lse = _forward(q, k, v, *args)
     return (out, lse) if return_lse else out

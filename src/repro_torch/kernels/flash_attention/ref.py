@@ -1,13 +1,17 @@
-"""Plain PyTorch version of the flash-attention forward kernel.
+"""Plain PyTorch versions of the flash-attention kernels, forward and
+backward.
 
 Materialises the full (T, S) score matrix — O(T*S) memory, fine at test
 sizes — and applies exactly the kernel's masking semantics: causal by
 absolute position, optional local window, optional logit softcap, kv
 positions >= seq_k masked (padding), all with the finite mask value
--1e30. The counterpart of the reference's `attention_ref`
-(`repro/kernels/flash_attention/ref.py:17`). The CPU tests use it and
-chip_smoke.py holds the CUDA kernel against it on the card; nothing on the
-card's main path calls it.
+-1e30. `attention_ref` is the counterpart of the reference's
+(`repro/kernels/flash_attention/ref.py:17`); `flash_attention_bwd_ref` is
+the recompute-from-lse math of the reference's backward kernels
+(`repro/kernels/flash_attention/kernel_bwd.py:32-49`, `_tile_p_ds`) over
+whole tensors. The CPU tests use them and chip_smoke.py holds the CUDA
+kernels against them on the card; on the card's main path only the
+softcap backward (autograd through `attention_ref`) reaches this module.
 """
 from __future__ import annotations
 
@@ -37,15 +41,7 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s = torch.einsum("btkgd,bskd->bkgts", qg, kf)          # (B,KH,G,T,S)
     if softcap is not None:
         s = torch.tanh(s / softcap) * softcap
-    qpos = torch.arange(T, device=q.device)[:, None]
-    kpos = torch.arange(S, device=q.device)[None, :]
-    mask = torch.ones((T, S), dtype=torch.bool, device=q.device)
-    if seq_k is not None:
-        mask = mask & (kpos < seq_k)
-    if causal:
-        mask = mask & (kpos <= qpos)
-    if window is not None:
-        mask = mask & (kpos > qpos - window)
+    mask = _mask(T, S, causal, window, seq_k, q.device)
     s = torch.where(mask, s, torch.tensor(MASK_VALUE, device=q.device))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
@@ -56,3 +52,49 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         lse = (m + torch.log(l.clamp_min(1e-30)))[..., 0]   # (B,KH,G,T)
         return out, lse.reshape(B, H, T)
     return out
+
+
+def _mask(T: int, S: int, causal: bool, window: Optional[int],
+          seq_k: Optional[int], device) -> torch.Tensor:
+    qpos = torch.arange(T, device=device)[:, None]
+    kpos = torch.arange(S, device=device)[None, :]
+    mask = torch.ones((T, S), dtype=torch.bool, device=device)
+    if seq_k is not None:
+        mask = mask & (kpos < seq_k)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    return mask
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, out: torch.Tensor,
+                            lse: torch.Tensor, dout: torch.Tensor, *,
+                            scale: float, causal: bool,
+                            window: Optional[int], seq_k: int):
+    """The backward recomputed from lse: q, out, dout (B,T,H,D); k, v
+    (B,S,KH,D); lse (B,H,T). With delta = rowsum(dout * out),
+    p = exp(mask(scale q.k) - lse), ds = p * (dout.v - delta) * scale:
+    returns float32 dq = ds.k (B,T,H,D) and dk = ds^T.q, dv = p^T.dout
+    (B,S,KH,D), summed over each GQA group, as the CUDA kernel returns
+    them."""
+    B, T, H, D = q.shape
+    S, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    qf = q.float().reshape(B, T, KH, G, D)
+    kf, vf = k.float(), v.float()
+    dof = dout.float().reshape(B, T, KH, G, D)
+    delta = (dout.float() * out.float()).sum(-1)             # (B,T,H)
+    delta = delta.reshape(B, T, KH, G).permute(0, 2, 3, 1)[..., None]
+    lse = lse.float().reshape(B, KH, G, T)[..., None]         # (B,KH,G,T,1)
+    s = torch.einsum("btkgd,bskd->bkgts", qf * scale, kf)    # (B,KH,G,T,S)
+    mask = _mask(T, S, causal, window, seq_k, q.device)
+    s = torch.where(mask, s, torch.tensor(MASK_VALUE, device=q.device))
+    p = torch.exp(s - lse)                                    # masked -> 0
+    dp = torch.einsum("btkgd,bskd->bkgts", dof, vf)
+    ds = p * (dp - delta) * scale
+    dq = torch.einsum("bkgts,bskd->btkgd", ds, kf).reshape(B, T, H, D)
+    dk = torch.einsum("bkgts,btkgd->bskd", ds, qf)
+    dv = torch.einsum("bkgts,btkgd->bskd", p, dof)
+    return dq, dk, dv

@@ -49,9 +49,18 @@ def _leaves(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()):
             yield prefix + (key,), node
 
 
-def _map(fn, tree: Dict[str, Any]) -> Dict[str, Any]:
-    return {k: _map(fn, v) if isinstance(v, dict) else fn(v)
-            for k, v in tree.items()}
+def tree_leaves(tree: Dict[str, Any]):
+    """The leaves of a nested dict in sorted key order (jax.tree's)."""
+    return [leaf for _, leaf in _leaves(tree)]
+
+
+def tree_map(fn, *trees: Dict[str, Any]) -> Dict[str, Any]:
+    """fn over the leaves of nested dicts of one structure, keys in sorted
+    order, as jax.tree.map walks them."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in sorted(first)}
+    return fn(*trees)
 
 
 def _init_leaf(d: ParamDef, gen: torch.Generator, dtype: torch.dtype,
@@ -114,7 +123,7 @@ def params_from_numpy(tree: Dict[str, Any], device: DeviceLike = None,
     `device`, cast to `dtype` if given. bfloat16 leaves arrive as
     ml_dtypes arrays and cross through a uint16 view."""
     device = resolve_device(device)
-    return _map(lambda a: _from_numpy(a, device, dtype), tree)
+    return tree_map(lambda a: _from_numpy(a, device, dtype), tree)
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -128,4 +137,4 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
     """The reverse of `params_from_numpy`: numpy arrays on the host, with
     bfloat16 leaves as ml_dtypes arrays."""
-    return _map(_to_numpy, params)
+    return tree_map(_to_numpy, params)

@@ -5,9 +5,10 @@ GeGLU/SwiGLU/squared-ReLU MLPs), the counterpart of
 The stacked layer params (layer axis first) are walked with a Python loop
 over the leading axis in place of `lax.scan`. Weights stay in the param
 dtype and are cast to the compute dtype at each use, as in the reference.
-MLA attention and the MoE FFN are not ported yet and raise. The forward
-keeps no activation checkpointing (`cfg.remat`): it serves inference and
-the parity tests; the train step comes with the training slice.
+MLA attention and the MoE FFN are not ported yet and raise. `loss_fn` is
+what the train step (`train/trainer.py`) differentiates; with
+`cfg.remat`, each layer runs under activation checkpointing while grad is
+enabled, as the reference wraps its scan body in `jax.checkpoint`.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import math
 from typing import Any, Dict, NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.models import layers as L
@@ -190,9 +192,21 @@ def forward(params, tokens, cfg: ModelConfig, mctx: MeshCtx,
     x = _embed_in(params, tokens, cfg)
     T = tokens.shape[1]
     positions = torch.arange(T, device=x.device)
+    # cfg.remat: each layer keeps only its input for the backward and runs
+    # again there (the reference's jax.checkpoint with nothing_saveable).
+    # On one device remat_policy="save_collectives" keeps nothing more than
+    # "nothing": the tensors it would keep are the outputs of the
+    # tensor-parallel all-reduces, which a single device never runs, so
+    # keeping them would spare the recompute no collective.
+    remat = cfg.remat and torch.is_grad_enabled()
     caches = []
     for i in range(cfg.n_layers):
-        x, c = _block(x, _layer(params["blocks"], i), cfg, mctx, positions)
+        bp = _layer(params["blocks"], i)
+        if remat:
+            x, c = checkpoint(_block, x, bp, cfg, mctx, positions,
+                              use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, c = _block(x, bp, cfg, mctx, positions)
         if collect_cache:
             caches.append(c)
     x = L.rms_norm(x, params["ln_f"], cfg.rms_eps)

@@ -1,7 +1,8 @@
 """The port on the CUDA card: the hand-written kernels against their plain
 versions, device-direct placement into GPU memory, the EC path's parity
-legs through rs_matmul, and a small model's prefill through
-flash_attention_fwd. Every test here needs a card and skips
+legs through rs_matmul, a small model's prefill through
+flash_attention_fwd and its train step through flash_attention_bwd.
+Every test here needs a card and skips
 without one; on the card run them with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -20,6 +21,7 @@ import torch
 from repro_torch.core import ROS2Client
 from repro_torch.core.device_direct import DeviceDirectSink
 from repro_torch.kernels.flash_attention import kernel as FK
+from repro_torch.kernels.flash_attention import kernel_bwd as FKB
 from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.flash_attention import ref as fref
 from repro_torch.kernels.rs_parity import kernel as K
@@ -206,8 +208,18 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError):                     # strided last dim
         t = torch.randn(1, 64, 2, 128, device=cuda_device)[..., ::2]
         FK.flash_attention_fwd(t, t, t, scale=1.0)
-    with pytest.raises(RuntimeError, match="training slice"):
-        fops.flash_attention(q.requires_grad_(), q, q)
+    # the backward kernel refuses the same, and rows that are not float32
+    lse = torch.zeros(1, 2, 64, device=cuda_device)
+    q32 = q[..., :32].contiguous()
+    with pytest.raises(ValueError):                     # head_dim 32
+        FKB.flash_attention_bwd(q32, q32, q32, q32, lse, lse, scale=1.0)
+    with pytest.raises(ValueError):                     # mixed dtypes
+        FKB.flash_attention_bwd(q, q, q, q.bfloat16(), lse, lse, scale=1.0)
+    with pytest.raises(ValueError):                     # float16
+        h = q.half()
+        FKB.flash_attention_bwd(h, h, h, h, lse, lse, scale=1.0)
+    with pytest.raises(ValueError):                     # bf16 lse
+        FKB.flash_attention_bwd(q, q, q, q, lse.bfloat16(), lse, scale=1.0)
 
 
 def test_small_model_prefill_through_the_kernel(cuda_device):
@@ -237,3 +249,96 @@ def test_small_model_prefill_through_the_kernel(cuda_device):
     torch.testing.assert_close(lf, lp, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(cf["k"], cp["k"], atol=1e-4, rtol=1e-4)
     assert abs(loss_f - loss_p) <= 1e-4 * (1 + abs(loss_p))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("B,T,H,KH,D,window", [
+    (1, 128, 4, 2, 64, None),       # GQA
+    (2, 64, 4, 1, 64, None),        # MQA
+    (1, 128, 2, 2, 64, 32),         # local window
+    (1, 100, 2, 2, 64, None),       # ragged T
+    (1, 128, 2, 2, 128, None),      # head_dim 128
+    (2, 200, 4, 2, 256, None),      # head_dim 256, ragged
+    (4, 256, 12, 4, 64, None),      # the train shape
+])
+def test_flash_bwd_kernel_matches_plain_version_on_card(
+        cuda_device, B, T, H, KH, D, window, dtype, tol):
+    """flash_attention_bwd's dq, dk and dv against flash_attention_bwd_ref
+    on the same out and lse, at the reference's backward tolerances
+    (tests/test_kernels.py:303)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(T + D + H)
+    q, k, v, dout = (torch.randn(B, T, h, D, generator=gen,
+                                 device=cuda_device).to(dtype)
+                     for h in (H, KH, KH, H))
+    out, lse = fops.flash_attention(q, k, v, window=window, return_lse=True)
+    before = fops.launches()["bwd"]
+    got = fops.flash_attention_backward(q, k, v, out, lse, dout,
+                                        scale=D ** -0.5, window=window)
+    want = fref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                        scale=D ** -0.5, causal=True,
+                                        window=window, seq_k=T)
+    torch.cuda.synchronize()
+    assert fops.launches()["bwd"] == before + 1
+    for g, w, x in zip(got, want, (q, k, v)):
+        assert g.dtype == dtype and g.shape == x.shape
+        torch.testing.assert_close(g.float(), w, atol=tol, rtol=tol)
+
+
+def test_autograd_through_flash_attention_on_card(cuda_device):
+    """Gradients through ops.flash_attention on the card (forward and
+    backward kernels) equal autograd through the plain version; softcap
+    takes its counted plain branch."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    for softcap in (None, 30.0):
+        q, k, v, dout = (torch.randn(2, 96, h, 64, generator=gen,
+                                     device=cuda_device) for h in (4, 2, 2, 4))
+        qkv = [x.clone().requires_grad_() for x in (q, k, v)]
+        before = fops.launches()
+        out = fops.flash_attention(*qkv, softcap=softcap)
+        got = torch.autograd.grad(out, qkv, dout)
+        after = fops.launches()
+        ref_qkv = [x.clone().requires_grad_() for x in (q, k, v)]
+        want = torch.autograd.grad(fref.attention_ref(*ref_qkv,
+                                                      softcap=softcap),
+                                   ref_qkv, dout)
+        assert after["fwd"] == before["fwd"] + 1
+        key = "bwd" if softcap is None else "bwd_softcap"
+        assert after[key] == before[key] + 1
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=2e-4, rtol=2e-4)
+
+
+def test_small_model_train_step_through_the_kernels(cuda_device):
+    """One float32 train step of a granite-shaped model (head_dim 64):
+    attn_impl "flash" launches the backward kernel once per layer and its
+    loss and gradients match the plain attention path
+    (tests/test_flash_integration.py: 1e-4, atol 2e-4 / rtol 2e-3)."""
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.configs import tiny_config
+    from repro_torch.models.api import ModelAPI
+    from repro_torch.models.context import single_device_ctx
+    from repro_torch.models.params import init_params, tree_leaves
+    from repro_torch.train.optimizer import init_adam
+    from repro_torch.train.trainer import make_train_step, value_and_grad
+    cfg = tiny_config("granite-3-2b").replace(head_dim=64)
+    mctx = single_device_ctx(cfg)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (4, 65), dtype=np.int32)).to(cuda_device)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {}
+    for impl in ("flash", "jnp"):
+        api = ModelAPI(cfg.replace(attn_impl=impl))
+        params = init_params(api.param_defs(),
+                             torch.Generator(device=cuda_device).manual_seed(0))
+        before = fops.launches()["bwd"]
+        out[impl] = value_and_grad(api, params, batch, mctx)
+        launched = fops.launches()["bwd"] - before
+        assert launched == (cfg.n_layers if impl == "flash" else 0)
+        step = make_train_step(api, TrainConfig(num_microbatches=2), mctx)
+        _, opt, metrics = step(params, init_adam(params), batch)
+        assert int(opt.step) == 1 and torch.isfinite(metrics["loss"])
+    (lf, gf), (lj, gj) = out["flash"], out["jnp"]
+    assert abs(float(lf) - float(lj)) <= 1e-4 * (1 + abs(float(lj)))
+    for a, b in zip(tree_leaves(gf), tree_leaves(gj)):
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-3)

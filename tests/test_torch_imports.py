@@ -31,8 +31,11 @@ def _env():
 
 def test_importing_every_module_pulls_in_neither_jax_nor_repro():
     mods = _port_modules()
-    assert "repro_torch.core.client" in mods
-    assert "repro_torch.kernels.rs_parity.kernel" in mods
+    for mod in ("core.client", "kernels.rs_parity.kernel",
+                "kernels.flash_attention.kernel_bwd", "train.optimizer",
+                "train.trainer", "data.pipeline", "distributed.checkpoint",
+                "distributed.fault", "launch.train"):
+        assert f"repro_torch.{mod}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -97,3 +100,11 @@ def test_chip_smoke_refuses_without_a_card_or_a_checkout(tmp_path):
                          cwd=tmp_path)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def test_train_main_needs_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--steps", "1"])

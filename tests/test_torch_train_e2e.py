@@ -1,0 +1,115 @@
+"""One tiny training run through both packages on the CPU: store ->
+loader -> three train steps (with the storage drill) -> checkpoint ->
+restore, following `launch/train.py main` step by step.
+
+Both runs start from the reference's params; the reference's flash path
+runs its Pallas kernels in interpret mode, the port's its plain versions.
+The batches must be equal bit for bit, the per-step losses within 1e-5
+relative (sums in another order), and each package's restored state equal
+to what it saved bit for bit. The params themselves are compared step by
+step in tests/test_torch_train.py, where each step starts from the same
+state: run freely, AdamW's elements with near-zero gradients drift apart
+and compound.
+"""
+import numpy as np
+import torch
+
+import jax
+
+from repro.common.config import TrainConfig as RefTrainConfig
+from repro.configs import tiny_config as ref_tiny_config
+from repro.core.client import ROS2Client as RefClient
+from repro.data.pipeline import ROS2TokenLoader as RefLoader
+from repro.data.pipeline import write_token_shards as ref_write_shards
+from repro.distributed.checkpoint import ROS2CheckpointManager as RefCkpt
+from repro.distributed.fault import FailureInjector as RefInjector
+from repro.launch.train import synth_tokens as ref_synth_tokens
+from repro.models.api import ModelAPI as RefAPI
+from repro.models.context import single_device_ctx as ref_ctx
+from repro.models.params import init_params as ref_init_params
+from repro.train.optimizer import init_adam as ref_init_adam
+from repro.train.trainer import make_train_step as ref_make_train_step
+from repro_torch.common.config import TrainConfig
+from repro_torch.configs import tiny_config
+from repro_torch.core import ROS2Client
+from repro_torch.data.pipeline import ROS2TokenLoader, write_token_shards
+from repro_torch.distributed.checkpoint import ROS2CheckpointManager
+from repro_torch.distributed.fault import FailureInjector
+from repro_torch.launch.train import state_from_numpy, synth_tokens
+from repro_torch.models.api import ModelAPI
+from repro_torch.models.context import single_device_ctx
+from repro_torch.models.params import params_from_numpy
+from repro_torch.train.optimizer import init_adam
+from repro_torch.train.trainer import make_train_step
+
+STEPS, GB, SEQ, DRILL = 3, 8, 32, 1
+
+
+def test_store_loader_steps_checkpoint_restore_match_reference():
+    ref_cfg = ref_tiny_config("granite-3-2b").replace(head_dim=64,
+                                                      attn_impl="flash")
+    cfg = tiny_config("granite-3-2b").replace(head_dim=64, attn_impl="flash")
+    need = STEPS * GB * (SEQ + 1) + SEQ + 1
+    tokens = synth_tokens(cfg.vocab, need, 0)
+    np.testing.assert_array_equal(tokens,
+                                  ref_synth_tokens(cfg.vocab, need, 0))
+    kw = dict(lr=1e-3, total_steps=STEPS, warmup_steps=1,
+              num_microbatches=2)
+    ref_api, api = RefAPI(ref_cfg), ModelAPI(cfg, device="cpu")
+    rp = ref_init_params(ref_api.param_defs(), jax.random.PRNGKey(0))
+    p = params_from_numpy(jax.tree.map(np.asarray, rp), device="cpu")
+    ro, o = ref_init_adam(rp), init_adam(p)
+    ref_step = jax.jit(ref_make_train_step(ref_api, RefTrainConfig(**kw),
+                                           ref_ctx(ref_cfg)))
+    step = make_train_step(api, TrainConfig(**kw),
+                           single_device_ctx(cfg, device="cpu"))
+
+    ref = RefClient(mode="dpu", transport="rdma", n_devices=4)
+    port = ROS2Client(mode="dpu", transport="rdma", n_devices=4,
+                      device="cpu")
+    loaders = []
+    try:
+        ref_write_shards(ref, "/data", tokens)
+        write_token_shards(port, "/data", tokens)
+        loaders = [RefLoader(ref, "/data", global_batch=GB, seq_len=SEQ,
+                             prefetch=2, hedge_timeout_s=0.5),
+                   ROS2TokenLoader(port, "/data", global_batch=GB,
+                                   seq_len=SEQ, prefetch=2,
+                                   hedge_timeout_s=0.5)]
+        ref_mgr, mgr = RefCkpt(ref, "/ckpt", keep=2), ROS2CheckpointManager(
+            port, "/ckpt", keep=2)
+        for i in range(STEPS):
+            if i == DRILL:
+                RefInjector(ref.store).kill(ref.devices[0].name)
+                FailureInjector(port.store).kill(port.devices[0].name)
+            rb, b = (ld.next_batch() for ld in loaders)
+            for key in ("tokens", "labels"):
+                np.testing.assert_array_equal(b[key], rb[key])
+            rp, ro, rm = ref_step(rp, ro, rb)
+            p, o, m = step(p, o, {k: torch.from_numpy(v)
+                                  for k, v in b.items()})
+            assert abs(float(m["loss"]) / float(rm["loss"]) - 1) < 1e-5, i
+        ref_mgr.save(STEPS, {"params": rp, "opt": ro})
+        mgr.save(STEPS, {"params": p, "opt": o})
+        ref_mgr.wait()
+        mgr.wait()
+        assert port.dpu.ops_processed > 0
+        s, state = mgr.restore({"params": p, "opt": o})
+        rs, rstate = ref_mgr.restore({"params": rp, "opt": ro})
+    finally:
+        for ld in loaders:
+            ld.close()
+        ref.close()
+        port.close()
+    assert s == rs == STEPS
+    saved = jax.tree.leaves({"params": p, "opt": o})
+    for got, want in zip(jax.tree.leaves(state), saved):
+        assert got.tobytes() == want.detach().numpy().tobytes()
+    for got, want in zip(jax.tree.leaves(rstate),
+                         jax.tree.leaves({"params": rp, "opt": ro})):
+        assert got.tobytes() == np.asarray(want).tobytes()
+    params, opt = state_from_numpy(state, "cpu")
+    assert int(opt.step) == STEPS and opt.step.dtype == torch.int32
+    for got, want in zip(jax.tree.leaves((params, opt)),
+                         jax.tree.leaves((p, o))):
+        assert torch.equal(got, want.detach())
