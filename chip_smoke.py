@@ -24,6 +24,16 @@ result):
                head_dim 128 and 256, the train and serve shapes), then
                times it, its plain version and the backward of
                scaled_dot_product_attention at the serve and train shapes;
+     scans     holds rglru_scan against its plain version (the reference's
+               shapes, T = 1, ragged R, the prefill shape (4, 1024, 2560),
+               ± h0, forward and reverse) to 1e-5 and its backward (the
+               kernel reversed) against autograd through the plain version
+               to 1e-4; wkv6 against its plain version (the reference's
+               shapes, ragged T, head_dim 16 and 128, T = 1, the prefill
+               shape (4, 1024, 32, 64), ± s0) to 3e-4 and under strong
+               decay to 1e-4; then times both kernels and their plain
+               versions beside their bounds at the prefill (and, for
+               rglru_scan, the decode) shape;
   4. ec        the erasure-coded storage path: a 1 GiB stream written to an
                ec(4,2) container on 8 targets in four fault domains with
                inline encryption, read back, one cell overwritten (delta
@@ -48,7 +58,25 @@ result):
                float32 through its first two layers (logits to 1e-3, every
                first greedy token equal), and a small float32 model's loss
                to 1e-4;
-  8. train     the training path at full width, as launch/train.py main
+  8. recurrent the serving path of the sub-quadratic families at full
+               width, each with attn_impl="flash" and the granite phase's
+               traffic (8 prompts of 1024 tokens from a dpu/RDMA store,
+               waves of 4, up to 32 new tokens each): recurrentgemma-2b (26
+               layers = 8 x (R, R, A) + 2 R, d_model 2560, MQA 10 x 256,
+               window 2048, vocab 256000) through rglru_scan, and
+               rwkv6-1.6b (24 layers, d_model 2048, 32 heads of 64, vocab
+               65536) through wkv6. The launch count must equal what the
+               path implies (18 a prefill wave and 18 a decode step; 24 a
+               prefill wave and none in decode), with no flash-attention
+               launch; every kernel call of one wave's prefill and decode
+               step holds against the plain version on its own inputs; the
+               whole model at full width in float32 through one
+               super-block, or 2 layers, holds against the plain path
+               (logits to 1e-3, every first greedy token equal); one
+               prefill and four decode steps are traced; then
+               launch/serve.py main runs the tiny config through its
+               command line;
+  9. train     the training path at full width, as launch/train.py main
                walks it: dense-100m (12 layers, d_model 768, vocab 32000)
                with attn_impl="flash", float32 params computing in bf16
                from a seed, a synthetic corpus written to a dpu-mode RDMA
@@ -68,7 +96,8 @@ result):
 
 Each kernel's launch counts are zeroed just before the path that drives it
 (rs_matmul: the ec phase; flash_attention_fwd: the serve phase;
-flash_attention_bwd: the train phase) and read just after it. The line before the last is a JSON object of the kernels
+rglru_scan and wkv6: their serve phases; flash_attention_bwd: the train
+phase) and read just after it. The line before the last is a JSON object of the kernels
 (launches, error, times, bound); the last line is the result object.
 """
 from __future__ import annotations
@@ -156,6 +185,7 @@ def kernel_device_ms(fn, iters: int, kernel: str, per_call: int = 1) -> float:
 
 KERNEL_KINDS = (  # substring of a CUDA kernel's name -> what it does
     ("flash_fwd_kernel", "flash fwd"), ("flash_bwd_", "flash bwd"),
+    ("rglru_scan_kernel", "rglru scan"), ("wkv6_kernel", "wkv scan"),
     ("rs_matmul", "parity"), ("nvjet", "matmul"), ("gemm", "matmul"),
     ("gemv", "matmul"), ("xmma", "matmul"), ("cutlass", "matmul"),
     ("direct_copy", "cast/copy"), ("Memcpy", "cast/copy"),
@@ -202,7 +232,9 @@ def build_phase() -> dict:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention import kernel_bwd as FKB
+    from repro_torch.kernels.rglru_scan import kernel as RGK
     from repro_torch.kernels.rs_parity import kernel as RK
+    from repro_torch.kernels.rwkv6_scan import kernel as WK
 
     def timed(build) -> float:
         t0 = time.perf_counter()
@@ -211,7 +243,8 @@ def build_phase() -> dict:
 
     t0 = time.perf_counter()
     builds = {"rs_parity": RK.build, "flash_attention_fwd": FK.build,
-              "flash_attention_bwd": FKB.build}
+              "flash_attention_bwd": FKB.build, "rglru_scan": RGK.build,
+              "wkv6": WK.build}
     with ThreadPoolExecutor(max_workers=len(builds),
                             thread_name_prefix="nvcc") as ex:
         futs = {name: ex.submit(timed, b) for name, b in builds.items()}
@@ -664,6 +697,194 @@ def flash_bwd_phase(seed: int) -> dict:
             "max_abs_err_by_dtype": worst, "shapes": shapes}
 
 
+# -- phase 3, continued: the RG-LRU and RWKV6 scans against their plain versions
+FP32_FLOPS = 67e12              # H100 SXM float32 FMA peak (CUDA cores)
+RGLRU_CASES = [  # B, T, R: the reference's (tests/test_kernels.py:103-104),
+    # T = 1 at the decode shape, ragged R, and the prefill shape
+    (1, 64, 128), (2, 128, 256), (1, 100, 96), (3, 32, 512),
+    (4, 1, 2560), (2, 77, 1000), (4, 1024, 2560)]
+RGLRU_PREFILL = (4, 1024, 2560)     # recurrentgemma-2b: B, T, d_rnn
+RGLRU_DECODE = (4, 1, 2560)
+WKV_CASES = [  # B, T, H, hd: the reference's (tests/test_kernels.py:152-154),
+    # ragged T, head_dim 16 and 128, T = 1 and the prefill shape
+    (1, 64, 2, 32), (2, 96, 2, 64), (1, 33, 1, 64), (1, 128, 4, 64),
+    (1, 37, 3, 16), (1, 70, 2, 128), (2, 1, 2, 64), (4, 1024, 32, 64)]
+WKV_PREFILL = (4, 1024, 32, 64)     # rwkv6-1.6b: B, T, H, hd
+
+
+def rglru_bound(B: int, T: int, R: int, h0: bool) -> dict:
+    """The least time an H100 SXM could take for the scan: a and b read
+    and h written once, and h0 read once where one is given (bytes); and
+    one FMA an element over the float32 FMA peak."""
+    nbytes = (3 * B * T * R + (B * R if h0 else 0)) * 4
+    flops = 2 * B * T * R
+    ops_ms = flops / FP32_FLOPS * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"flops": flops, "bytes": nbytes, "ops_ms": ops_ms,
+            "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms > bytes_ms else "bytes"}
+
+
+def wkv_bound(B: int, T: int, H: int, hd: int, s0: bool,
+              chunk: int = 32) -> dict:
+    """The least time an H100 SXM could take for the chunked WKV: r, k,
+    v, w read and y written once, the state written once, s0 read once
+    where one is given, u read (bytes); and the operations of the four stages over the rows
+    this T holds, exp and log counted as one operation and an FMA as two,
+    over the float32 FMA peak. Per chunk of n rows: 8·n·hd to take logs,
+    sum them and decay r and k; 2·n·hd² for (r·exp(cum_prev)) @ S;
+    5·hd a strictly causal (t, s) pair; 3·n·hd for the bonus; 2·hd a
+    (t, s <= t) pair for att @ v; 2·n·hd² + hd² + hd for the state."""
+    nbytes = (5 * B * T * H * hd + (2 if s0 else 1) * B * H * hd * hd
+              + H * hd) * 4
+    flops = 0
+    for c0 in range(0, T, chunk):
+        n = min(chunk, T - c0)
+        flops += (8 * n * hd + 2 * n * hd * hd + 5 * hd * n * (n - 1) // 2
+                  + 3 * n * hd + 2 * hd * n * (n + 1) // 2
+                  + 2 * n * hd * hd + hd * hd + hd)
+    flops *= B * H
+    ops_ms = flops / FP32_FLOPS * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"flops": flops, "bytes": nbytes, "ops_ms": ops_ms,
+            "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms > bytes_ms else "bytes"}
+
+
+def scan_phase(seed: int) -> dict:
+    import torch
+    from repro_torch.kernels.rglru_scan import kernel as RGK
+    from repro_torch.kernels.rglru_scan import ops as rops
+    from repro_torch.kernels.rglru_scan import ref as rref
+    from repro_torch.kernels.rwkv6_scan import kernel as WK
+    from repro_torch.kernels.rwkv6_scan import ref as wref
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    def scan_inputs(B, T, R):
+        return torch.sigmoid(2 * randn(B, T, R)), randn(B, T, R), randn(B, R)
+
+    # rglru_scan, forward and reverse, ± h0, to 1e-5 (tests/test_kernels.py
+    # :116); its backward (the kernel reversed) against autograd through the
+    # plain version to 1e-4 (:140)
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    n_checks = 0
+    for B, T, R in RGLRU_CASES:
+        a, b, h0 = scan_inputs(B, T, R)
+        for h in (None, h0):
+            for reverse in (False, True):
+                got = RGK.rglru_scan(a, b, h, reverse=reverse)
+                want = rref.rglru_scan_ref(a, b, h, reverse=reverse)
+                torch.cuda.synchronize()
+                err, ok = in_tolerance(got, want, 1e-5)
+                check(ok, f"rglru_scan off its plain version by {err}: "
+                      f"B={B} T={T} R={R} h0={h is not None} "
+                      f"reverse={reverse}")
+                worst["fwd"] = max(worst["fwd"], err)
+                n_checks += 1
+    for B, T, R in ((2, 96, 200), RGLRU_PREFILL):
+        ins = [x.requires_grad_() for x in scan_inputs(B, T, R)]
+        ref_ins = [x.detach().clone().requires_grad_() for x in ins]
+        torch.sin(rops.rglru_scan(*ins)).sum().backward()
+        torch.sin(rref.rglru_scan_ref(*ref_ins)).sum().backward()
+        torch.cuda.synchronize()
+        for x, y, name in zip(ins, ref_ins, ("da", "db", "dh0")):
+            err, ok = in_tolerance(x.grad, y.grad, 1e-4)
+            check(ok, f"rglru_scan backward {name} off autograd through the"
+                  f" plain version by {err}: B={B} T={T} R={R}")
+            worst["bwd"] = max(worst["bwd"], err)
+        del ins, ref_ins
+    print(f"rglru_scan within 1e-5 of its plain version in {n_checks} checks "
+          f"(max abs error {worst['fwd']:.3e}); its backward within 1e-4 of "
+          f"autograd through the plain version (max abs error "
+          f"{worst['bwd']:.3e})")
+
+    # wkv6 against its plain version (the reference's chunk choice, then
+    # the chunked form) to 3e-4 (tests/test_kernels.py:166), strong decay
+    # to 1e-4 (:203)
+    wkv_worst = 0.0
+    for B, T, H, hd in WKV_CASES:
+        xs = (randn(B, T, H, hd), 0.5 * randn(B, T, H, hd), randn(B, T, H, hd),
+              torch.exp(-torch.exp(randn(B, T, H, hd))), 0.5 * randn(H, hd),
+              0.1 * randn(B, H, hd, hd))
+        for s0 in (None, xs[5]):
+            got = WK.wkv6(*xs[:5], s0)
+            want = wref.wkv_plain(*xs[:5], s0)
+            torch.cuda.synchronize()
+            for g, w, name in zip(got, want, ("y", "state")):
+                check(bool(torch.isfinite(g).all()), f"wkv6 {name} not "
+                      f"finite: B={B} T={T} H={H} hd={hd}")
+                err, ok = in_tolerance(g, w, 3e-4)
+                check(ok, f"wkv6 {name} off its plain version by {err}: "
+                      f"B={B} T={T} H={H} hd={hd} s0={s0 is not None}")
+                wkv_worst = max(wkv_worst, err)
+        del xs
+    r, k, v = (randn(1, 64, 1, 32) for _ in range(3))
+    w = torch.full_like(r, 1e-9)
+    u = torch.zeros(1, 32, device="cuda")
+    strong = 0.0
+    for g, x, name in zip(WK.wkv6(r, k, v, w, u),
+                          wref.wkv_ref(r, k, v, w, u), ("y", "state")):
+        check(bool(torch.isfinite(g).all()), f"wkv6 {name} not finite "
+              "under strong decay")
+        err, ok = in_tolerance(g, x, 1e-4)
+        check(ok, f"wkv6 {name} under strong decay off its sequential "
+              f"version by {err}")
+        strong = max(strong, err)
+    print(f"wkv6 within 3e-4 of its plain version in {2 * len(WKV_CASES)} "
+          f"checks (max abs error {wkv_worst:.3e}); strong decay finite and "
+          f"within 1e-4 (max abs error {strong:.3e})")
+
+    # times at the main path's shapes and as the path calls the kernels
+    # (prefill with no initial state, decode with h0): `ms` the kernel's
+    # device time (profiler), `call_ms` the wrapper's call (CUDA events,
+    # launch overhead included), `plain_ms` the plain version
+    shapes = {}
+    for leg, (B, T, R), with_h0 in (("prefill", RGLRU_PREFILL, False),
+                                    ("decode", RGLRU_DECODE, True)):
+        a, b, h0 = scan_inputs(B, T, R)
+        h0 = h0 if with_h0 else None
+        ms = kernel_device_ms(lambda: RGK.rglru_scan(a, b, h0), 50,
+                              RGK.KERNEL_NAME)
+        call_ms = cuda_ms(lambda: rops.rglru_scan(a, b, h0), 50)
+        plain_ms = cuda_ms(lambda: rref.rglru_scan_ref(a, b, h0), 10)
+        bound = rglru_bound(B, T, R, with_h0)
+        shapes[leg] = {"shape": {"B": B, "T": T, "R": R, "h0": with_h0},
+                       "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+                       **bound}
+        print(f"rglru_scan at the {leg} shape (B={B}, T={T}, R={R}, "
+              f"h0={with_h0}): kernel "
+              f"{ms:.6f} ms on the device, {call_ms:.6f} ms a call, plain "
+              f"{plain_ms:.6f} ms; bound {bound['bound_ms']:.6f} ms by "
+              f"{bound['bound_by']}: {bound['bytes']} B / "
+              f"{HBM_BYTES_PER_S:.3g} B/s, {bound['flops']} FLOP / "
+              f"{FP32_FLOPS:.3g} FLOP/s = {bound['ops_ms']:.6f} ms")
+    from repro_torch.kernels.rwkv6_scan import ops as wops
+    B, T, H, hd = WKV_PREFILL
+    xs = (randn(B, T, H, hd), 0.5 * randn(B, T, H, hd), randn(B, T, H, hd),
+          torch.exp(-torch.exp(randn(B, T, H, hd))), 0.5 * randn(H, hd))
+    ms = kernel_device_ms(lambda: WK.wkv6(*xs), 20, WK.KERNEL_NAME)
+    call_ms = cuda_ms(lambda: wops.wkv6(*xs), 20)
+    plain_ms = cuda_ms(lambda: wref.wkv_plain(*xs), 5)
+    bound = wkv_bound(B, T, H, hd, s0=False)
+    wkv = {"shape": {"B": B, "T": T, "H": H, "hd": hd}, "ms": ms,
+           "call_ms": call_ms, "plain_ms": plain_ms, **bound}
+    print(f"wkv6 at the prefill shape (B={B}, T={T}, H={H}, hd={hd}): kernel "
+          f"{ms:.6f} ms on the device, {call_ms:.6f} ms a call, plain "
+          f"{plain_ms:.6f} ms; bound {bound['bound_ms']:.6f} ms by "
+          f"{bound['bound_by']}: {bound['bytes']} B / {HBM_BYTES_PER_S:.3g} "
+          f"B/s = {bound['bytes_ms']:.6f} ms, {bound['flops']} FLOP / "
+          f"{FP32_FLOPS:.3g} FLOP/s = {bound['ops_ms']:.6f} ms")
+    return {"rglru": {"max_abs_err": max(worst.values()),
+                      "max_abs_err_fwd": worst["fwd"],
+                      "max_abs_err_bwd": worst["bwd"], "legs": shapes},
+            "wkv": {"max_abs_err": max(wkv_worst, strong),
+                    "strong_decay_max_abs_err": strong, **wkv}}
+
+
 # -- phase 7: serving granite-3-2b at full width from the store ---------------
 SERVE_REQUESTS, SERVE_BATCH, SERVE_PLEN, SERVE_MAX_NEW = 8, 4, 1024, 32
 SHALLOW_LAYERS = 2          # depth of the float32 whole-model check
@@ -675,15 +896,82 @@ def first_layers(tree: dict, n: int) -> dict:
             for k, v in tree.items()}
 
 
+def _serve_from_store(api, params, mctx, vocab: int, seed: int, label: str,
+                      reset, counts) -> tuple:
+    """The serve phases' traffic: SERVE_REQUESTS prompts of SERVE_PLEN
+    tokens written to a dpu-mode RDMA store and read back, then served in
+    waves of SERVE_BATCH, up to SERVE_MAX_NEW new tokens each, through
+    BatchedEngine after a warm-up wave. `reset()` sets the kernel counts to
+    0 just before the timed run and `counts()` reads them (name ->
+    launches) just after. Returns (requests, engine, stats, launches)."""
+    import torch
+    from repro_torch.core import ROS2Client
+    from repro_torch.launch.serve import (BatchedEngine, Request,
+                                          read_prompt, write_prompts)
+
+    client = ROS2Client(mode="dpu", transport="rdma", scrub_interval_s=None)
+    try:
+        t0 = time.perf_counter()
+        write_prompts(client, SERVE_REQUESTS, SERVE_PLEN, vocab, seed)
+        rng = np.random.default_rng(seed)         # write_prompts' draws
+        written = [rng.integers(0, vocab, SERVE_PLEN, dtype=np.int32)
+                   for _ in range(SERVE_REQUESTS)]
+        rng = np.random.default_rng(seed)         # launch/serve.py main's draw
+        reqs = [Request(i, read_prompt(client, i, SERVE_PLEN),
+                        int(rng.integers(SERVE_MAX_NEW // 2,
+                                         SERVE_MAX_NEW + 1)))
+                for i in range(SERVE_REQUESTS)]
+        prompts_s = time.perf_counter() - t0
+        for r, w in zip(reqs, written):
+            check(np.array_equal(r.prompt, w), f"prompt {r.rid} read back "
+                  "from the store differs from what was written")
+        dpu_ops = client.dpu.ops_processed
+    finally:
+        client.close()
+
+    max_seq = SERVE_PLEN + SERVE_MAX_NEW + 8
+    eng = BatchedEngine(api, params, mctx, SERVE_BATCH, SERVE_PLEN, max_seq)
+    # warm-up wave outside the counted run (cuBLAS handles, allocator)
+    eng.run_wave([Request(-1, reqs[0].prompt, 2)])
+    eng = BatchedEngine(api, params, mctx, SERVE_BATCH, SERVE_PLEN, max_seq)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    waves = 0
+    for i in range(0, len(reqs), SERVE_BATCH):
+        eng.run_wave(reqs[i:i + SERVE_BATCH])
+        waves += 1
+    wall = time.perf_counter() - t0
+    launched = counts()
+    new_tokens = sum(len(r.out) for r in reqs)
+    check(all(r.done for r in reqs), "a request did not finish")
+    check(all(0 <= t < vocab for r in reqs for t in r.out),
+          "a token outside the vocabulary")
+    occ = eng.active_slot_steps / max(eng.slot_steps, 1)
+    stats = {"requests": len(reqs), "waves": waves,
+             "prompt_tokens": SERVE_PLEN * len(reqs),
+             "new_tokens": new_tokens, "prompts_s": prompts_s,
+             "wall_s": wall, "tokens_per_s": new_tokens / wall,
+             "slot_occupancy": occ, "prefill_s": eng.prefill_s,
+             "decode_s": eng.decode_s, "decode_steps": eng.steps,
+             "dpu_ops": dpu_ops,
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"[{label}] {len(reqs)} requests of {SERVE_PLEN} prompt tokens in "
+          f"{waves} waves: {new_tokens} new tokens, "
+          f"{new_tokens / wall:.3f} tok/s, slot occupancy {100 * occ:.1f}%, "
+          f"prefill {eng.prefill_s:.3f} s, decode {eng.decode_s:.3f} s over "
+          f"{eng.steps} steps, " + ", ".join(
+              f"{k} launches {v}" for k, v in launched.items()))
+    return reqs, eng, stats, launched
+
+
 def serve_phase(seed: int, times: dict) -> dict:
     import torch
     from repro_torch.configs import get_config, tiny_config
-    from repro_torch.core import ROS2Client
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.launch.mesh import make_host_mesh_ctx
-    from repro_torch.launch.serve import (BatchedEngine, Request,
-                                          read_prompt, write_prompts)
     from repro_torch.models.api import ModelAPI
     from repro_torch.models.params import count_params, init_params
 
@@ -700,63 +988,16 @@ def serve_phase(seed: int, times: dict) -> dict:
           f"vocab {cfg.vocab}, {n_params} params ({cfg.param_dtype}) on the "
           f"card in {times['serve_init_params_s']:.3f} s")
 
-    client = ROS2Client(mode="dpu", transport="rdma", scrub_interval_s=None)
-    try:
-        t0 = time.perf_counter()
-        write_prompts(client, SERVE_REQUESTS, SERVE_PLEN, cfg.vocab, seed)
-        rng = np.random.default_rng(seed)         # write_prompts' draws
-        written = [rng.integers(0, cfg.vocab, SERVE_PLEN, dtype=np.int32)
-                   for _ in range(SERVE_REQUESTS)]
-        rng = np.random.default_rng(seed)         # launch/serve.py main's draw
-        reqs = [Request(i, read_prompt(client, i, SERVE_PLEN),
-                        int(rng.integers(SERVE_MAX_NEW // 2,
-                                         SERVE_MAX_NEW + 1)))
-                for i in range(SERVE_REQUESTS)]
-        times["serve_prompts_s"] = time.perf_counter() - t0
-        for r, w in zip(reqs, written):
-            check(np.array_equal(r.prompt, w), f"prompt {r.rid} read back "
-                  "from the store differs from what was written")
-        dpu_ops = client.dpu.ops_processed
-    finally:
-        client.close()
-
-    max_seq = SERVE_PLEN + SERVE_MAX_NEW + 8
-    eng = BatchedEngine(api, params, mctx, SERVE_BATCH, SERVE_PLEN, max_seq)
-    # warm-up wave outside the counted run (cuBLAS handles, allocator)
-    eng.run_wave([Request(-1, reqs[0].prompt, 2)])
-    eng = BatchedEngine(api, params, mctx, SERVE_BATCH, SERVE_PLEN, max_seq)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    waves = 0
-    for i in range(0, len(reqs), SERVE_BATCH):
-        eng.run_wave(reqs[i:i + SERVE_BATCH])
-        waves += 1
-    wall = time.perf_counter() - t0
-    launches = ops.launches()["fwd"]
-    times["serve_s"] = wall
-    new_tokens = sum(len(r.out) for r in reqs)
-    check(all(r.done for r in reqs), "a request did not finish")
-    check(all(0 <= t < cfg.vocab for r in reqs for t in r.out),
-          "a token outside the vocabulary")
-    check(launches >= cfg.n_layers * waves,
+    reqs, eng, stats, launched = _serve_from_store(
+        api, params, mctx, cfg.vocab, seed, "serve", ops.reset_launches,
+        lambda: {"flash_attention_fwd": ops.launches()["fwd"]})
+    launches = launched["flash_attention_fwd"]
+    times["serve_prompts_s"] = stats["prompts_s"]
+    times["serve_s"] = stats["wall_s"]
+    check(launches >= cfg.n_layers * stats["waves"],
           f"flash_attention_fwd launched {launches} times, fewer than "
-          f"{cfg.n_layers} layers x {waves} waves")
-    occ = eng.active_slot_steps / max(eng.slot_steps, 1)
-    stats = {"requests": len(reqs), "waves": waves,
-             "prompt_tokens": SERVE_PLEN * len(reqs),
-             "new_tokens": new_tokens, "wall_s": wall,
-             "tokens_per_s": new_tokens / wall, "slot_occupancy": occ,
-             "prefill_s": eng.prefill_s, "decode_s": eng.decode_s,
-             "decode_steps": eng.steps, "flash_launches": launches,
-             "dpu_ops": dpu_ops,
-             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    print(f"[serve] {len(reqs)} requests of {SERVE_PLEN} prompt tokens in "
-          f"{waves} waves: {new_tokens} new tokens, "
-          f"{new_tokens / wall:.3f} tok/s, slot occupancy {100 * occ:.1f}%, "
-          f"prefill {eng.prefill_s:.3f} s, decode {eng.decode_s:.3f} s over "
-          f"{eng.steps} steps, flash_attention_fwd launches {launches}")
+          f"{cfg.n_layers} layers x {stats['waves']} waves")
+    stats["flash_launches"] = launches
 
     # one wave's prefill through the flash kernel, every layer's attention
     # held against the plain version on the very inputs the serve path gave
@@ -877,7 +1118,196 @@ def serve_phase(seed: int, times: dict) -> dict:
     return stats
 
 
-# -- phase 8: training dense-100m at full width from the store ----------------
+# -- phase 8: serving recurrentgemma-2b and rwkv6-1.6b at full width -----------
+REC_SERVE = {  # arch -> kernel, the cut for the float32 whole-model check
+    "recurrentgemma-2b": ("rglru_scan", "one super-block (R, R, A)"),
+    "rwkv6-1.6b": ("wkv6", f"{SHALLOW_LAYERS} layers"),
+}
+REC_MAIN_ARGS = ["--requests", "4", "--batch", "2", "--prompt-len", "32",
+                 "--max-new", "8"]
+
+
+def _kernel_ops(kernel: str):
+    """(ops module, the name the model looks up in it, plain version on a
+    call's own inputs, tolerance) of a scan kernel."""
+    if kernel == "rglru_scan":
+        from repro_torch.kernels.rglru_scan import ops, ref
+        return ops, "rglru_scan", ref.rglru_scan_ref, 1e-5
+    from repro_torch.kernels.rwkv6_scan import ops, ref
+    return ops, "wkv6", ref.wkv_plain, 3e-4
+
+
+def _cut_params(params: dict, cfg) -> tuple:
+    """The config and params cut to the float32 check's depth (views)."""
+    if cfg.family == "hybrid":
+        cut = cfg.replace(n_layers=cfg.hybrid.rnn_per_attn + 1)
+        return cut, {"embed": params["embed"], "ln_f": params["ln_f"],
+                     "super": first_layers(params["super"], 1)}
+    cut = cfg.replace(n_layers=SHALLOW_LAYERS)
+    return cut, dict(params, blocks=first_layers(params["blocks"],
+                                                 SHALLOW_LAYERS))
+
+
+def serve_recurrent_phase(arch: str, seed: int, times: dict) -> dict:
+    """Serves `arch` (hybrid or ssm) at full width from the store, as the
+    granite phase does, and holds its scan kernel on the path."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch.mesh import make_host_mesh_ctx
+    from repro_torch.models import recurrent
+    from repro_torch.models.api import ModelAPI
+    from repro_torch.models.params import count_params, init_params
+
+    kernel, cut_name = REC_SERVE[arch]
+    kops, attr, plain_fn, tol = _kernel_ops(kernel)
+    cfg = get_config(arch).replace(attn_impl="flash")
+    if cfg.family == "hybrid":
+        n_super, n_tail = recurrent.pattern(cfg)
+        per_prefill = per_step = n_super * cfg.hybrid.rnn_per_attn + n_tail
+    else:
+        per_prefill, per_step = cfg.n_layers, 0
+    api = ModelAPI(cfg)
+    mctx = make_host_mesh_ctx(cfg)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_params(api.param_defs(), gen, getattr(torch, cfg.param_dtype))
+    torch.cuda.synchronize()
+    times[f"{arch}_init_params_s"] = time.perf_counter() - t0
+    n_params = count_params(api.param_defs())
+    print(f"{arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab}, {n_params} params ({cfg.param_dtype}, computing in "
+          f"{cfg.compute_dtype}) on the card in "
+          f"{times[f'{arch}_init_params_s']:.3f} s")
+
+    def counts() -> dict:
+        return {kernel: kops.launches()["fwd"],
+                "flash_attention_fwd": flash_ops.launches()["fwd"]}
+
+    def reset() -> None:
+        kops.reset_launches()
+        flash_ops.reset_launches()
+
+    reqs, eng, stats, launched = _serve_from_store(
+        api, params, mctx, cfg.vocab, seed, f"serve {arch}", reset, counts)
+    launches, flash_launches = launched[kernel], launched["flash_attention_fwd"]
+    times[f"{arch}_serve_s"] = stats["wall_s"]
+    waves = stats["waves"]
+    expect = per_prefill * waves + per_step * eng.steps
+    check(launches == expect, f"{kernel} launched {launches} times; the path "
+          f"implies {per_prefill} x {waves} waves + {per_step} x {eng.steps} "
+          f"decode steps = {expect}")
+    check(flash_launches == 0, f"flash_attention_fwd launched "
+          f"{flash_launches} times on the {arch} path")
+    stats.update({"kernel_launches": launches,
+                  "launches_per_prefill": per_prefill,
+                  "launches_per_decode_step": per_step, "n_params": n_params})
+
+    # one wave's prefill and one decode step, every kernel call held
+    # against the plain version on the very inputs the path gave it (bf16
+    # model, float32 scan inputs)
+    wave = torch.from_numpy(np.stack([r.prompt for r in reqs[:SERVE_BATCH]]))
+    calls = []
+    kernel_path = getattr(kops, attr)
+
+    def recording(*args):
+        # copies: a decode step writes the state its h0 views in place
+        kept = tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                     for a in args)
+        out = kernel_path(*args)
+        calls.append((kept, out))
+        return out
+
+    setattr(kops, attr, recording)         # the model looks it up per call
+    try:
+        with torch.inference_mode():
+            logits, state = api.prefill(params, {"tokens": wave}, mctx)
+            n_prefill = len(calls)
+            tok = logits.argmax(-1).to(torch.int32)
+            pos = torch.full((SERVE_BATCH,), SERVE_PLEN, dtype=torch.int32,
+                             device="cuda")
+            api.decode(params, {"token": tok, "pos": pos}, state, mctx)
+    finally:
+        setattr(kops, attr, kernel_path)
+    check((n_prefill, len(calls) - n_prefill) == (per_prefill, per_step),
+          f"{n_prefill} prefill and {len(calls) - n_prefill} decode calls of "
+          f"{kernel}, not {per_prefill} and {per_step}")
+    mixer_err = 0.0
+    for i, (args, out) in enumerate(calls):
+        want = plain_fn(*args)
+        for got, w in zip(out if isinstance(out, tuple) else (out,),
+                          want if isinstance(want, tuple) else (want,)):
+            err, ok = in_tolerance(got, w, tol)
+            check(ok, f"call {i}: {kernel} off its plain version by {err} "
+                  "on the serve path's inputs")
+            mixer_err = max(mixer_err, err)
+    calls.clear()
+    print(f"every {kernel} call of one wave's prefill and decode step on the "
+          f"path's own inputs within {tol} of its plain version: max abs "
+          f"error {mixer_err:.3e} over {n_prefill} + {per_step} calls")
+    plain = ModelAPI(cfg.replace(attn_impl="jnp"))
+    with torch.inference_mode():
+        plain_logits, _ = plain.prefill(params, {"tokens": wave}, mctx)
+    fl, pl = logits.float(), plain_logits.float()
+    check(bool(torch.isfinite(fl).all()), "prefill logits not finite")
+    diff = float((fl - pl).abs().max())
+    agree = int((fl.argmax(-1) == pl.argmax(-1)).sum())
+    # printed, not checked: at full depth in bf16 two paths' roundings may
+    # drift apart in the random-weight model (ROADMAP Queue 3)
+    print(f"prefill logits, kernel vs plain path (bf16, {cfg.n_layers} "
+          f"layers): max abs difference {diff:.6f} at logit scale "
+          f"{float(pl.abs().max()):.6f}; first greedy token agrees in {agree}"
+          f" of {SERVE_BATCH} rows")
+
+    # the whole model at full width in float32 through its first layers:
+    # logits within 1e-3 and every first greedy token the same
+    cut, cut_params = _cut_params(params, cfg.replace(compute_dtype="float32"))
+    with torch.inference_mode():
+        f32 = [ModelAPI(cut.replace(attn_impl=impl)).prefill(
+            cut_params, {"tokens": wave}, mctx)[0]
+            for impl in ("flash", "jnp")]
+    f32_diff, ok = in_tolerance(f32[0], f32[1], 1e-3)
+    f32_agree = int((f32[0].argmax(-1) == f32[1].argmax(-1)).sum())
+    print(f"prefill logits, kernel vs plain path (float32, {cut_name}, full "
+          f"width): max abs difference {f32_diff:.3e} at logit scale "
+          f"{float(f32[1].abs().max()):.6f}; first greedy token agrees in "
+          f"{f32_agree} of {SERVE_BATCH} rows")
+    check(ok, f"float32 prefill logits of the two paths differ by {f32_diff}")
+    check(f32_agree == SERVE_BATCH, "float32 first greedy tokens differ: "
+          f"{f32_agree} of {SERVE_BATCH} rows agree")
+    del f32
+    stats.update({"mixer_max_abs_err": mixer_err,
+                  "prefill_logit_max_abs_diff": diff,
+                  "first_token_agree": agree,
+                  "f32_shallow_logit_max_abs_diff": f32_diff,
+                  "f32_shallow_first_token_agree": f32_agree})
+
+    # where a wave's time goes: one traced prefill and four decode steps
+    with torch.inference_mode():
+        stats["trace_prefill"] = device_breakdown(
+            lambda: api.prefill(params, {"tokens": wave}, mctx))
+        _, state = api.prefill(params, {"tokens": wave}, mctx)
+
+        def steps() -> None:
+            for i in range(4):
+                api.decode(params, {"token": tok, "pos": pos + i}, state,
+                           mctx)
+        stats["trace_decode_4_steps"] = device_breakdown(steps)
+    print(f"traced prefill of one wave ({arch}):", stats["trace_prefill"])
+    print(f"traced 4 decode steps ({arch}):", stats["trace_decode_4_steps"])
+    del params, state, eng, logits, plain_logits, cut_params
+
+    # launch/serve.py main, through its own command line, on the tiny config
+    t0 = time.perf_counter()
+    tok_s = launch_serve.main(["--arch", f"tiny-{arch}", *REC_MAIN_ARGS])
+    times[f"{arch}_main_s"] = time.perf_counter() - t0
+    check(tok_s > 0, f"launch/serve.py main --arch tiny-{arch}: {tok_s}")
+    stats["main_tokens_per_s"] = tok_s
+    return stats
+
+
+# -- phase 9: training dense-100m at full width from the store ----------------
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICROBATCHES = 30, 8, 256, 2
 TRAIN_CKPT_EVERY, TRAIN_DRILL_AT = 10, 15
 TRAIN_MAIN_ARGS = ["--arch", "dense-100m", "--steps", "5", "--global-batch",
@@ -1187,8 +1617,10 @@ def main(argv=None) -> int:
     from repro_torch.core import ROS2Client
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention import kernel_bwd as FKB
+    from repro_torch.kernels.rglru_scan import kernel as RGK
     from repro_torch.kernels.rs_parity import kernel as K
     from repro_torch.kernels.rs_parity import ops
+    from repro_torch.kernels.rwkv6_scan import kernel as WK
 
     size = args.stream_mib * MiB
     if args.stream_mib != 1024:
@@ -1214,6 +1646,9 @@ def main(argv=None) -> int:
         flash = flash_phase(args.seed)
         flash_bwd = flash_bwd_phase(args.seed)
         times["flash_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        scans = scan_phase(args.seed)
+        times["scans_s"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
         client = ROS2Client(mode="host", transport="rdma", n_targets=8,
@@ -1254,6 +1689,12 @@ def main(argv=None) -> int:
         serve = serve_phase(args.seed, times)
         times["serve_phase_s"] = time.perf_counter() - t0
 
+        rec_serve = {}
+        for arch in REC_SERVE:
+            t0 = time.perf_counter()
+            rec_serve[arch] = serve_recurrent_phase(arch, args.seed, times)
+            times[f"{arch}_phase_s"] = time.perf_counter() - t0
+
         t0 = time.perf_counter()
         train = train_phase(args.seed, times)
         times["train_phase_s"] = time.perf_counter() - t0
@@ -1268,8 +1709,11 @@ def main(argv=None) -> int:
     print("phase wall times (s):", json.dumps(times))
     print("direct placement:", json.dumps(direct))
     print("serve:", json.dumps(serve))
+    for arch, stats in rec_serve.items():
+        print(f"serve {arch}:", json.dumps(stats))
     print("train:", json.dumps(train))
     bwd = flash_bwd["shapes"]["train"]
+    rgp, wkv = scans["rglru"]["legs"]["prefill"], scans["wkv"]
     print(json.dumps({"kernels": [{
         "name": "rs_matmul", "route": "cuda", "source": K.SOURCE,
         "replaces": K.REPLACES, "launches": total,
@@ -1293,7 +1737,23 @@ def main(argv=None) -> int:
         "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
         "library_ms": bwd["library_ms"],
         "max_abs_err_by_dtype": flash_bwd["max_abs_err_by_dtype"],
-        "shape": bwd["shape"], "shapes": flash_bwd["shapes"]}]}))
+        "shape": bwd["shape"], "shapes": flash_bwd["shapes"]}, {
+        "name": "rglru_scan", "route": "cuda", "source": RGK.SOURCE,
+        "replaces": RGK.REPLACES,
+        "launches": rec_serve["recurrentgemma-2b"]["kernel_launches"],
+        "max_abs_err": scans["rglru"]["max_abs_err"], "ms": rgp["ms"],
+        "call_ms": rgp["call_ms"], "plain_ms": rgp["plain_ms"],
+        "bound_ms": rgp["bound_ms"], "bound_by": rgp["bound_by"],
+        "library_ms": None, "shape": rgp["shape"],
+        "legs": scans["rglru"]["legs"]}, {
+        "name": "wkv6", "route": "cuda", "source": WK.SOURCE,
+        "replaces": WK.REPLACES,
+        "launches": rec_serve["rwkv6-1.6b"]["kernel_launches"],
+        "max_abs_err": wkv["max_abs_err"], "ms": wkv["ms"],
+        "call_ms": wkv["call_ms"], "plain_ms": wkv["plain_ms"],
+        "bound_ms": wkv["bound_ms"], "bound_by": wkv["bound_by"],
+        "library_ms": None, "shape": wkv["shape"], "flops": wkv["flops"],
+        "bytes": wkv["bytes"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,4 +8,9 @@ and ref.py (the numpy oracle and the plain PyTorch version).
   rs_parity       — GF(256) Reed-Solomon parity for ec(k,p) containers
   flash_attention — online-softmax GQA attention, forward (prefill and
                     training) and backward recomputed from lse (training)
+  rglru_scan      — the RG-LRU linear recurrence of the hybrid family's
+                    recurrent blocks (prefill and decode), and its
+                    adjoint in reverse (training)
+  rwkv6_scan      — the chunked RWKV6 WKV recurrence of the ssm family's
+                    time-mix blocks (prefill)
 """

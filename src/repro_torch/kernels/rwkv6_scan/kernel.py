@@ -1,0 +1,80 @@
+"""The `wkv6` CUDA kernel (`csrc/wkv6.cu`): binding and launch.
+
+The RWKV6 WKV recurrence in its chunk-parallel form (chunks of 32 steps,
+any T) on PyTorch's current stream: y (B,T,H,hd) and the final state
+(B,H,hd,hd), float32. It replaces the TPU kernel
+`repro/kernels/rwkv6_scan/kernel.py:88 wkv_chunked_tiles`; the source says
+what bounds it and what its design does about that. The library is built
+from the repo's sources on first use (`kernels/_build.py`).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+
+HEAD_DIMS = (16, 32, 64, 128)
+CHUNK = 32                               # WKV_CHUNK of the source
+SOURCE = "src/repro_torch/csrc/wkv6.cu"
+REPLACES = "src/repro/kernels/rwkv6_scan/kernel.py:88"
+KERNEL_NAME = "wkv6_kernel"              # the __global__ function, as traced
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.wkv6.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.wkv6.restype = ctypes.c_int
+
+
+def _lib() -> ctypes.CDLL:
+    return _build.load("wkv6", ["wkv6.cu"], _bind)
+
+
+def build() -> None:
+    """Build (or find) and load the library."""
+    _lib()
+
+
+def _check(x: torch.Tensor, shape: tuple, what: str, dev) -> None:
+    if (x.device != dev or x.dtype != torch.float32
+            or tuple(x.shape) != shape or not x.is_contiguous()):
+        raise ValueError(f"wkv6 takes {what} as a contiguous float32 "
+                         f"{shape} tensor on {dev}, got {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}")
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         w: torch.Tensor, u: torch.Tensor,
+         s0: Optional[torch.Tensor] = None
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """r, k, v, w (B,T,H,hd), u (H,hd), s0 (B,H,hd,hd) or None (zeros):
+    contiguous float32 CUDA tensors, hd in HEAD_DIMS. Returns (y, final
+    state). Raises on what the kernel does not take and if the launch
+    fails."""
+    if r.device.type != "cuda" or r.dim() != 4:
+        raise ValueError("wkv6 takes (B,T,H,hd) CUDA tensors, got "
+                         f"{tuple(r.shape)} on {r.device}")
+    B, T, H, hd = r.shape
+    if hd not in HEAD_DIMS or B < 1 or T < 1 or H < 1:
+        raise ValueError(f"wkv6 takes head_dim in {HEAD_DIMS} and B, T, H "
+                         f">= 1, got {tuple(r.shape)}")
+    for x, what in ((r, "r"), (k, "k"), (v, "v"), (w, "w")):
+        _check(x, (B, T, H, hd), what, r.device)
+    _check(u, (H, hd), "u", r.device)
+    if s0 is not None:
+        _check(s0, (B, H, hd, hd), "s0", r.device)
+    y = torch.empty_like(r)
+    s = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    lib = _lib()
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        err = lib.wkv6(r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       w.data_ptr(), u.data_ptr(),
+                       None if s0 is None else s0.data_ptr(), y.data_ptr(),
+                       s.data_ptr(), B, T, H, hd, stream)
+    if err != 0:
+        raise RuntimeError(f"wkv6 launch failed: CUDA error {err}")
+    return y, s

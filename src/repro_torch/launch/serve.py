@@ -82,9 +82,13 @@ class BatchedEngine:
 
     def _pad_cache(self, cache):
         """Grow the sequence axis (axis 2 of the stacked (L,B,S,KH,D)
-        caches) from prompt_len to max_seq for decode. The reference pads
-        the first axis whose size equals prompt_len, which is the layer
-        axis when prompt_len == n_layers; the port pads by position."""
+        caches) of the dense family from prompt_len to max_seq for decode.
+        The reference pads the first axis whose size equals prompt_len,
+        which is the layer axis when prompt_len == n_layers; the port pads
+        by position. Hybrid and ssm state is O(1) in the sequence and
+        passes through unchanged, as in the reference."""
+        if self.api.cfg.family != "dense":
+            return cache
         grow = self.max_seq - self.prompt_len
         return {k: F.pad(x, (0, 0, 0, 0, 0, grow)) for k, x in cache.items()}
 

@@ -6,7 +6,8 @@
     out, cache  = api.decode(params, inputs, cache, mctx)
     api.cache_specs(batch, seq_len) -> shapes and dtypes (no allocation)
 
-Only the dense family is ported; the others raise, naming their ROADMAP
+The dense (`transformer.py`), hybrid (`recurrent.py`) and ssm (`rwkv.py`)
+families are ported; moe, vlm and encdec raise, naming their ROADMAP
 item. Inputs may be tensors or arrays; arrays are placed on the API's
 device, the CUDA card unless the caller asks for the CPU.
 """
@@ -32,12 +33,18 @@ class ModelAPI:
 
     @property
     def _m(self):
-        if self.cfg.family != "dense":
+        fam = self.cfg.family
+        if fam == "dense":
+            from repro_torch.models import transformer as m
+        elif fam == "hybrid":
+            from repro_torch.models import recurrent as m
+        elif fam == "ssm":
+            from repro_torch.models import rwkv as m
+        else:
             raise NotImplementedError(
-                f"the {self.cfg.family} family is not ported yet (ROADMAP "
-                "Queue 1 item 10, remaining families)")
-        from repro_torch.models import transformer
-        return transformer
+                f"the {fam} family is not ported yet (ROADMAP Queue 1 item "
+                "10, remaining families)")
+        return m
 
     def _tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device)
@@ -54,10 +61,18 @@ class ModelAPI:
                                self.cfg, mctx)
 
     def decode(self, params, inputs: Dict[str, Any], cache, mctx: MeshCtx):
-        """One decode step; the cache is updated in place and returned."""
+        """One decode step; the cache (or state) is updated in place and
+        returned."""
         return self._m.decode_step(params, self._tensor(inputs["token"]),
                                    self._tensor(inputs["pos"]), cache,
                                    self.cfg, mctx)
 
     def cache_specs(self, batch: int, seq_len: int, dtype=None):
-        return self._m.cache_spec(self.cfg, batch, seq_len, dtype)
+        """The dense KV cache in cfg.kv_cache_dtype, or the hybrid and ssm
+        decode state (O(1) in seq_len) with its float32 and int32 leaves
+        and the rest in bfloat16, unless `dtype` is given."""
+        m = self._m
+        if self.cfg.family == "dense":
+            return m.cache_spec(self.cfg, batch, seq_len, dtype)
+        return m.state_spec(self.cfg, batch,
+                            torch.bfloat16 if dtype is None else dtype)

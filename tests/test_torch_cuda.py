@@ -1,7 +1,9 @@
 """The port on the CUDA card: the hand-written kernels against their plain
 versions, device-direct placement into GPU memory, the EC path's parity
 legs through rs_matmul, a small model's prefill through
-flash_attention_fwd and its train step through flash_attention_bwd.
+flash_attention_fwd and its train step through flash_attention_bwd, and
+the RG-LRU and RWKV6 scans (rglru_scan forward and reverse, wkv6) with
+the small hybrid and ssm models that serve through them.
 Every test here needs a card and skips
 without one; on the card run them with
 
@@ -27,6 +29,12 @@ from repro_torch.kernels.flash_attention import ref as fref
 from repro_torch.kernels.rs_parity import kernel as K
 from repro_torch.kernels.rs_parity import ops
 from repro_torch.kernels.rs_parity import ref
+from repro_torch.kernels.rglru_scan import kernel as RK
+from repro_torch.kernels.rglru_scan import ops as rops
+from repro_torch.kernels.rglru_scan import ref as rref
+from repro_torch.kernels.rwkv6_scan import kernel as WK
+from repro_torch.kernels.rwkv6_scan import ops as wops
+from repro_torch.kernels.rwkv6_scan import ref as wref
 
 MiB = 1 << 20
 pytestmark = pytest.mark.cuda
@@ -342,3 +350,175 @@ def test_small_model_train_step_through_the_kernels(cuda_device):
     assert abs(float(lf) - float(lj)) <= 1e-4 * (1 + abs(float(lj)))
     for a, b in zip(tree_leaves(gf), tree_leaves(gj)):
         torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-3)
+
+
+def _scan_inputs(gen, B, T, R, dev):
+    a = torch.sigmoid(2 * torch.randn(B, T, R, generator=gen, device=dev))
+    return a, torch.randn(B, T, R, generator=gen, device=dev), torch.randn(
+        B, R, generator=gen, device=dev)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("B,T,R", [(1, 64, 128), (2, 128, 256),
+                                   (1, 100, 96), (3, 32, 512),
+                                   (4, 1, 2560), (2, 1, 130), (2, 77, 1000)])
+def test_rglru_kernel_matches_plain_version_on_card(
+        cuda_device, B, T, R, with_h0, reverse):
+    """rglru_scan against rglru_scan_ref to 1e-5 (tests/test_kernels.py:
+    103-117): the reference's shapes, T = 1, ragged R, ± h0, both
+    directions."""
+    gen = torch.Generator(device=cuda_device).manual_seed(B * T + R)
+    a, b, h0 = _scan_inputs(gen, B, T, R, cuda_device)
+    h0 = h0 if with_h0 else None
+    got = RK.rglru_scan(a, b, h0, reverse=reverse)
+    want = rref.rglru_scan_ref(a, b, h0, reverse=reverse)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_rglru_backward_runs_the_kernel_in_reverse(cuda_device):
+    """Gradients of sum(sin(h)) through the kernel's reverse mode against
+    autograd through the plain version, to 1e-4 (tests/test_kernels.py:
+    120-141); one fwd and one bwd launch."""
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    ins = [x.requires_grad_() for x in _scan_inputs(gen, 2, 96, 200,
+                                                    cuda_device)]
+    ref_ins = [x.detach().clone().requires_grad_() for x in ins]
+    before = rops.launches()
+    torch.sin(rops.rglru_scan(*ins)).sum().backward()
+    after = rops.launches()
+    assert (after["fwd"] - before["fwd"], after["bwd"] - before["bwd"]) == (
+        1, 1)
+    torch.sin(rref.rglru_scan_ref(*ref_ins)).sum().backward()
+    for x, y in zip(ins, ref_ins):
+        torch.testing.assert_close(x.grad, y.grad, atol=1e-4, rtol=1e-4)
+
+
+def _wkv_inputs(gen, B, T, H, hd, dev):
+    def n(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+    w = torch.exp(-torch.exp(n(B, T, H, hd)))
+    return (n(B, T, H, hd), 0.5 * n(B, T, H, hd), n(B, T, H, hd), w,
+            0.5 * n(H, hd), 0.1 * n(B, H, hd, hd))
+
+
+@pytest.mark.parametrize("B,T,H,hd", [
+    (1, 64, 2, 32), (2, 96, 2, 64), (1, 33, 1, 64), (1, 128, 4, 64),
+    (2, 1, 2, 64), (1, 37, 3, 16), (1, 70, 2, 128)])
+def test_wkv6_kernel_matches_plain_version_on_card(cuda_device, B, T, H, hd):
+    """wkv6 against the plain chunked and sequential versions to 3e-4
+    (tests/test_kernels.py:152-167): the reference's shapes, T = 1,
+    ragged T, head_dim 16 and 128."""
+    gen = torch.Generator(device=cuda_device).manual_seed(T + hd)
+    xs = _wkv_inputs(gen, B, T, H, hd, cuda_device)
+    before = wops.launches()["fwd"]
+    y, s = wops.wkv6(*xs)
+    assert wops.launches()["fwd"] == before + 1
+    yc, sc = wref.wkv_plain(*xs)
+    ys, ss = wref.wkv_ref(*xs)
+    torch.cuda.synchronize()
+    for got, want in ((y, yc), (s, sc), (y, ys), (s, ss)):
+        torch.testing.assert_close(got, want, atol=3e-4, rtol=3e-4)
+
+
+def test_wkv6_wrapper_without_state_on_card(cuda_device):
+    """With s0 None, as prefill calls it, the wrapper launches the kernel
+    with no initial state (3e-4), and its gradients, autograd through the
+    sequential version, match autograd through that version (1e-4)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    xs = [x.requires_grad_()
+          for x in _wkv_inputs(gen, 2, 40, 2, 32, cuda_device)[:5]]
+    refs = [x.detach().clone().requires_grad_() for x in xs]
+    before = wops.launches()["fwd"]
+    y, s = wops.wkv6(*xs)
+    assert wops.launches()["fwd"] == before + 1
+    yr, sr = wref.wkv_ref(*refs)
+    torch.testing.assert_close(y, yr, atol=3e-4, rtol=3e-4)
+    torch.testing.assert_close(s, sr, atol=3e-4, rtol=3e-4)
+    (torch.sin(y).sum() + s.square().sum()).backward()
+    (torch.sin(yr).sum() + sr.square().sum()).backward()
+    for x, r in zip(xs, refs):
+        torch.testing.assert_close(x.grad, r.grad, atol=1e-4, rtol=1e-4)
+
+
+def test_wkv6_kernel_strong_decay_stays_finite(cuda_device):
+    """w = 1e-9 everywhere: finite, and within 1e-4 of the sequential
+    version (tests/test_kernels.py:190-203)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(31)
+    r, k, v = (torch.randn(1, 64, 1, 32, generator=gen, device=cuda_device)
+               for _ in range(3))
+    w = torch.full_like(r, 1e-9)
+    u = torch.zeros(1, 32, device=cuda_device)
+    y, s = WK.wkv6(r, k, v, w, u)
+    yr, sr = wref.wkv_ref(r, k, v, w, u)
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    torch.testing.assert_close(y, yr, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(s, sr, atol=1e-4, rtol=1e-4)
+
+
+def test_scan_kernels_refuse_what_they_do_not_take(cuda_device):
+    x = torch.randn(1, 8, 2, 48, device=cuda_device)
+    u = torch.zeros(2, 48, device=cuda_device)
+    with pytest.raises(ValueError):                     # head_dim 48
+        WK.wkv6(x, x, x, x, u)
+    y = torch.randn(1, 8, 2, 64, device=cuda_device)
+    with pytest.raises(ValueError):                     # float64
+        WK.wkv6(y.double(), y, y, y, u)
+    with pytest.raises(ValueError):                     # strided
+        WK.wkv6(y.transpose(1, 2), y, y, y, u)
+    a = torch.rand(2, 16, 32, device=cuda_device)
+    with pytest.raises(ValueError):                     # bf16
+        RK.rglru_scan(a.bfloat16(), a.bfloat16())
+    with pytest.raises(ValueError):                     # h0 of the wrong shape
+        RK.rglru_scan(a, a, torch.zeros(2, 31, device=cuda_device))
+    with pytest.raises(ValueError):                     # on the CPU
+        RK.rglru_scan(a.cpu(), a.cpu())
+
+
+@pytest.mark.parametrize("name", ["recurrentgemma-2b", "rwkv6-1.6b"])
+def test_small_recurrent_models_serve_through_the_kernels(cuda_device, name):
+    """A float32 tiny hybrid and ssm model: under "flash" prefill and two
+    decode steps launch rglru_scan once per recurrent layer a call (the
+    hybrid; no flash-attention launch) or wkv6 once per layer in prefill
+    and never in decode (ssm), and match the plain path to 1e-4."""
+    from repro_torch.configs import tiny_config
+    from repro_torch.models import recurrent
+    from repro_torch.models.api import ModelAPI
+    from repro_torch.models.context import single_device_ctx
+    from repro_torch.models.params import init_params
+    cfg = tiny_config(name)
+    mctx = single_device_ctx(cfg)
+    if cfg.family == "hybrid":
+        n_super, n_tail = recurrent.pattern(cfg)
+        per_call = (n_super * cfg.hybrid.rnn_per_attn + n_tail, ) * 2
+        counts = lambda: rops.launches()["fwd"]          # noqa: E731
+    else:
+        per_call = (cfg.n_layers, 0)
+        counts = lambda: wops.launches()["fwd"]          # noqa: E731
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 40), dtype=np.int32))
+    out = {}
+    for impl in ("flash", "jnp"):
+        api = ModelAPI(cfg.replace(attn_impl=impl))
+        params = init_params(api.param_defs(),
+                             torch.Generator(device=cuda_device).manual_seed(0))
+        with torch.inference_mode():
+            before, fwd_before = counts(), fops.launches()["fwd"]
+            logits, state = api.prefill(params, {"tokens": toks}, mctx)
+            mid = counts()
+            steps = []
+            for i in range(2):
+                pos = torch.full((2,), 40 + i, dtype=torch.int32,
+                                 device=cuda_device)
+                tok = logits.argmax(-1).to(torch.int32)
+                logits, state = api.decode(params, {"token": tok, "pos": pos},
+                                           state, mctx)
+                steps.append(logits)
+            if impl == "flash":
+                assert (mid - before, counts() - mid) == (
+                    per_call[0], 2 * per_call[1])
+            assert fops.launches()["fwd"] == fwd_before
+        out[impl] = steps
+    for a, b in zip(out["flash"], out["jnp"]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)

@@ -160,7 +160,7 @@ def test_params_round_trip_in_bfloat16():
 
 
 def test_unported_families_raise_and_name_the_roadmap_item():
-    for name in ("dbrx-132b", "rwkv6-1.6b", "recurrentgemma-2b"):
+    for name in ("dbrx-132b", "llama-3.2-vision-90b", "whisper-tiny"):
         api = ModelAPI(tiny_config(name), device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             api.param_defs()

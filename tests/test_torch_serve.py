@@ -1,6 +1,7 @@
 """The port's serving engine against the reference's (tests/test_serve.py):
-the same params and prompts give the same greedy tokens; partial waves
-exit early; prompts round-trip through the port's store on the CPU."""
+the same params and prompts give the same greedy tokens (dense, hybrid
+and ssm families); partial waves exit early; prompts round-trip through
+the port's store on the CPU."""
 import numpy as np
 import pytest
 import torch
@@ -27,14 +28,14 @@ from repro_torch.models.params import params_from_numpy
 PLEN, MAXNEW, BATCH = 16, 6, 3
 
 
-def _engines():
-    ref_cfg = ref_tiny_config("granite-3-2b")
+def _engines(name="granite-3-2b", impl="jnp"):
+    ref_cfg = ref_tiny_config(name).replace(attn_impl=impl)
     ref_api = RefAPI(ref_cfg)
     ref_params = ref_init_params(ref_api.param_defs(), jax.random.PRNGKey(0))
     ref_eng = RefEngine(ref_api, ref_params, ref_host_ctx(ref_cfg),
                         batch=BATCH, prompt_len=PLEN,
                         max_seq=PLEN + MAXNEW + 8)
-    cfg = tiny_config("granite-3-2b")
+    cfg = tiny_config(name).replace(attn_impl=impl)
     params = params_from_numpy(jax.tree.map(np.asarray, ref_params),
                                device="cpu")
     eng = BatchedEngine(ModelAPI(cfg, device="cpu"), params,
@@ -61,6 +62,24 @@ def test_wave_matches_reference_engine():
     assert (eng.steps, eng.slot_steps, eng.active_slot_steps) == (
         ref_eng.steps, ref_eng.slot_steps, ref_eng.active_slot_steps)
     assert eng.prefill_s > 0 and eng.decode_s > 0
+
+
+@pytest.mark.parametrize("impl", ["jnp", "flash"])
+@pytest.mark.parametrize("name", ["recurrentgemma-2b", "rwkv6-1.6b"])
+def test_recurrent_families_give_the_reference_engines_tokens(name, impl):
+    """A partial wave of the hybrid and ssm families: their O(1) state
+    passes _pad_cache unchanged in both engines, and every greedy token
+    is the reference's."""
+    ref_eng, eng = _engines(name, impl)
+    p0, p1 = _prompts(2, 2, eng.api.cfg.vocab)
+    reqs = [Request(0, p0, MAXNEW), Request(1, p1, 3)]
+    ref_reqs = [RefRequest(0, p0, MAXNEW), RefRequest(1, p1, 3)]
+    eng.run_wave(reqs)
+    ref_eng.run_wave(ref_reqs)
+    assert [len(r.out) for r in reqs] == [MAXNEW, 3]
+    assert [r.out for r in reqs] == [r.out for r in ref_reqs]
+    assert (eng.steps, eng.active_slot_steps) == (
+        ref_eng.steps, ref_eng.active_slot_steps)
 
 
 def test_partial_wave_and_early_exit():
