@@ -7,8 +7,9 @@ Phases, each of which must pass (any failure exits non-zero and prints no
 result):
 
   1. card      the card's name and power limit, as nvidia-smi reports them;
-     build     builds every kernel of csrc/ cold, one nvcc per source, all
-               started together, and prints the ptxas reports;
+     build     builds every kernel of csrc/ cold (seven sources), one nvcc
+               per source, all started together, and prints the ptxas
+               reports;
   2. kernels   holds rs_matmul bit-exact against its plain PyTorch version
                on the card (encode, decode, delta, ragged and unaligned
                shapes), then times both at the shapes the main path gives
@@ -34,6 +35,13 @@ result):
                decay to 1e-4; then times both kernels and their plain
                versions beside their bounds at the prefill (and, for
                rglru_scan, the decode) shape;
+     integrity holds stream_cipher and fletcher bit-exact against their
+               plain versions (the reference's test shapes, key 0xC0FFEE
+               and nonce 42, ragged u8, float32, bf16 and u8 of 333
+               elements, u8 views that start 1, 2 and 3 bytes into a word,
+               key and nonce >= 2^32, a 1 GiB buffer, and the cipher's
+               involution there), then times both and their plain versions
+               at a 1 MiB block and at 1 GiB beside their bounds;
   4. ec        the erasure-coded storage path: a 1 GiB stream written to an
                ec(4,2) container on 8 targets in four fault domains with
                inline encryption, read back, one cell overwritten (delta
@@ -44,7 +52,15 @@ result):
                read and of full-stripe writes;
   5. direct    the same stream placed into GPU memory by DeviceDirectSink
                as 256 float32 tensors of 4 MiB plus odd-sized tensors at
-               misaligned offsets, compared byte for byte on the card;
+               misaligned offsets, compared byte for byte on the card; then
+               the stream cipher's and the checksum's main path on the
+               placed stream: each of its 1,024 blocks of 1 MiB checksummed
+               on the card by fletcher and held against the engine's
+               media.checksum of the host bytes, and 64 blocks plus one
+               partial block (at a byte offset not a multiple of 4)
+               ciphered on the card by stream_cipher and held against the
+               inline crypto's InlineCrypto.apply at the engine's nonces
+               (oid * 2^20 + block, past 2^32);
   6. dpu       the paper's offload configuration (dpu mode, rdma,
                replicated): 64 MiB written, read and placed on the card;
   7. serve     the serving path at full width: granite-3-2b (40 layers,
@@ -95,9 +111,10 @@ result):
                command line.
 
 Each kernel's launch counts are zeroed just before the path that drives it
-(rs_matmul: the ec phase; flash_attention_fwd: the serve phase;
-rglru_scan and wkv6: their serve phases; flash_attention_bwd: the train
-phase) and read just after it. The line before the last is a JSON object of the kernels
+(rs_matmul: the ec phase; stream_cipher and fletcher: the step on the
+placed stream; flash_attention_fwd: the serve phase; rglru_scan and wkv6:
+their serve phases; flash_attention_bwd: the train phase) and read just
+after it. The line before the last is a JSON object of the kernels
 (launches, error, times, bound); the last line is the result object.
 """
 from __future__ import annotations
@@ -186,6 +203,7 @@ def kernel_device_ms(fn, iters: int, kernel: str, per_call: int = 1) -> float:
 KERNEL_KINDS = (  # substring of a CUDA kernel's name -> what it does
     ("flash_fwd_kernel", "flash fwd"), ("flash_bwd_", "flash bwd"),
     ("rglru_scan_kernel", "rglru scan"), ("wkv6_kernel", "wkv scan"),
+    ("stream_cipher_kernel", "cipher"), ("fletcher_kernel", "checksum"),
     ("rs_matmul", "parity"), ("nvjet", "matmul"), ("gemm", "matmul"),
     ("gemv", "matmul"), ("xmma", "matmul"), ("cutlass", "matmul"),
     ("direct_copy", "cast/copy"), ("Memcpy", "cast/copy"),
@@ -235,6 +253,8 @@ def build_phase() -> dict:
     from repro_torch.kernels.rglru_scan import kernel as RGK
     from repro_torch.kernels.rs_parity import kernel as RK
     from repro_torch.kernels.rwkv6_scan import kernel as WK
+    from repro_torch.kernels.fletcher import kernel as FLK
+    from repro_torch.kernels.stream_cipher import kernel as SCK
 
     def timed(build) -> float:
         t0 = time.perf_counter()
@@ -244,7 +264,8 @@ def build_phase() -> dict:
     t0 = time.perf_counter()
     builds = {"rs_parity": RK.build, "flash_attention_fwd": FK.build,
               "flash_attention_bwd": FKB.build, "rglru_scan": RGK.build,
-              "wkv6": WK.build}
+              "wkv6": WK.build, "stream_cipher": SCK.build,
+              "fletcher": FLK.build}
     with ThreadPoolExecutor(max_workers=len(builds),
                             thread_name_prefix="nvcc") as ex:
         futs = {name: ex.submit(timed, b) for name, b in builds.items()}
@@ -442,7 +463,9 @@ def ec_phase(client, size: int, seed: int, times: dict) -> bytearray:
 
 # -- phase 5/6: device-direct placement ----------------------------------------
 def direct_phase(client, path: str, expect, slot_bytes: int,
-                 n_slots: int, tensor_bytes: int) -> dict:
+                 n_slots: int, tensor_bytes: int) -> tuple:
+    """Places `path` into GPU memory as tensors of `tensor_bytes` plus
+    odd-sized ones and checks every byte; returns (stats, the tensors)."""
     import torch
     from repro_torch.core.device_direct import DeviceDirectSink
     dev = client.device
@@ -471,7 +494,7 @@ def direct_phase(client, path: str, expect, slot_bytes: int,
     client.close_fd(fd)
     print(f"device-direct {path}: {len(reqs)} tensors, {stats}, "
           f"{stats.bytes / wall / 1e9:.3f} GB/s")
-    return {"stats": stats.__dict__, "wall_s": wall}
+    return {"stats": stats.__dict__, "wall_s": wall}, got
 
 
 # -- phase 3: flash attention against its plain version -----------------------
@@ -883,6 +906,232 @@ def scan_phase(seed: int) -> dict:
                       "max_abs_err_bwd": worst["bwd"], "legs": shapes},
             "wkv": {"max_abs_err": max(wkv_worst, strong),
                     "strong_decay_max_abs_err": strong, **wkv}}
+
+
+# -- phase 3, continued: the storage path's stream cipher and checksum --------
+INT32_OPS = 64 * 132 * 1.98e9   # H100 SXM: 64 INT32 lanes an SM, 132 SMs,
+#                                 1.98 GHz (NVIDIA's Hopper white paper)
+CIPHER_OPS_A_WORD = 11          # add, mul-add, 3 x (shift, xor), 2 mul, xor
+FLETCHER_OPS_A_WORD = 3         # add to s1, weight, mul-add to s2
+CIPHER_KEYS = [(0xC0FFEE, 42),  # the reference's (tests/test_kernels.py:257)
+               ((1 << 32) + 0xC0FFEE, (1 << 33) + 42)]   # both >= 2^32
+INTEGRITY_BLOCK = MiB           # the engine checksums and crypto pages 1 MiB
+
+
+def integrity_bound(kernel: str, n_bytes: int) -> dict:
+    """The least time an H100 SXM could take: the cipher reads and writes
+    every byte, the checksum reads every byte and writes 8 (bytes); the
+    integer operations a word over the INT32 rate (operations)."""
+    words = (n_bytes + 3) // 4
+    if kernel == "stream_cipher":
+        nbytes, ops = 2 * n_bytes, CIPHER_OPS_A_WORD * words
+    else:
+        nbytes, ops = n_bytes + 8, FLETCHER_OPS_A_WORD * words
+    ops_ms = ops / INT32_OPS * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bytes": nbytes, "int_ops": ops, "ops_ms": ops_ms,
+            "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms > bytes_ms else "bytes"}
+
+
+def _int64(t):
+    """A u8 or u32 tensor's values as int64 (torch has few uint32 ops)."""
+    import torch
+    from repro_torch.kernels.stream_cipher import ref as scref
+    flat = t.reshape(-1)
+    if flat.dtype == torch.uint32:
+        return scref.u32_to_int64(flat)
+    return flat.to(torch.int64)
+
+
+def _bit_err(got, want) -> int:
+    """Largest absolute difference of two u8 or u32 results' elements."""
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{got.dtype} {tuple(got.shape)} != {want.dtype} "
+          f"{tuple(want.shape)}")
+    if got.numel() == 0:
+        return 0
+    return int((_int64(got) - _int64(want)).abs().max())
+
+
+def integrity_phase(seed: int, size: int) -> dict:
+    """stream_cipher and fletcher bit-exact against their plain versions on
+    the card: the reference's test shapes, ragged u8, float32, bf16 and u8
+    of 333 elements, u8 views starting 1, 2 and 3 bytes into a word, key
+    and nonce >= 2^32 and a buffer of `size` bytes (the involution there
+    too); then both timed at a 1 MiB block and at `size`."""
+    import torch
+    from repro_torch.kernels.fletcher import kernel as FLK
+    from repro_torch.kernels.fletcher import ops as flops
+    from repro_torch.kernels.fletcher import ref as flref
+    from repro_torch.kernels.stream_cipher import kernel as SCK
+    from repro_torch.kernels.stream_cipher import ops as scops
+    from repro_torch.kernels.stream_cipher import ref as scref
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+
+    def u8(n: int):
+        return torch.randint(0, 256, (n,), generator=gen, device="cuda",
+                             dtype=torch.uint8)
+
+    def u32(n: int):
+        return torch.randint(-2**31, 2**31, (n,), generator=gen,
+                             device="cuda", dtype=torch.int32).view(
+                                 torch.uint32)
+
+    big = u8(size)
+    buf = u8(10003)
+    shifted = [(f"u8 from byte {k}", buf[k:k + 9001]) for k in (1, 2, 3)]
+    check(all(t.data_ptr() % 4 for _, t in shifted), "views are aligned")
+    f32 = torch.randn(333, generator=gen, device="cuda")
+    common = ([(f"u8 n={n}", u8(n)) for n in (999, 1013)] + shifted
+              + [(f"{size} B", big)])
+    cipher_in = [(f"u32 n={n}", u32(n)) for n in (4, 100, 4096, 8193)] \
+        + common + [("u8 n=333", u8(333))]
+    fletcher_in = [(f"u32 n={n}", u32(n))
+                   for n in (1, 7, 256, 2048, 2049, 10000)] + common + [
+        ("float32 n=333", f32), ("bfloat16 n=333", f32.bfloat16()),
+        ("u8 n=333", u8(333))]
+
+    worst = {"stream_cipher": 0, "fletcher": 0}
+    n_checks = 0
+    for key, nonce in CIPHER_KEYS:
+        for what, x in cipher_in:
+            got = scops.stream_cipher(x, key, nonce)
+            want = scref.stream_cipher_torch(x, key, nonce)
+            torch.cuda.synchronize()
+            err = _bit_err(got, want)
+            worst["stream_cipher"] = max(worst["stream_cipher"], err)
+            n_checks += 1
+            check(err == 0, f"stream_cipher != plain version: {what}, "
+                  f"key {key:#x}, nonce {nonce:#x}")
+            del got, want
+    back = scops.stream_cipher(scops.stream_cipher(big, *CIPHER_KEYS[1]),
+                               *CIPHER_KEYS[1])
+    check(torch.equal(back, big), f"stream_cipher twice != input at {size} B")
+    del back
+    for what, x in fletcher_in:
+        got = flops.fletcher_checksum(x)
+        want = flref.fletcher_checksum_torch(x)
+        torch.cuda.synchronize()
+        err = _bit_err(got, want)
+        worst["fletcher"] = max(worst["fletcher"], err)
+        n_checks += 1
+        check(err == 0, f"fletcher != plain version: {what}")
+    print(f"stream_cipher and fletcher bit-exact with their plain versions "
+          f"in {n_checks} checks; stream_cipher twice restores {size} B")
+
+    # times at a 1 MiB block (the 128 blocks taken in turn span 128 MiB,
+    # more than the 50 MB L2, so each launch finds its block in HBM, as on
+    # the path) and at `size`: `ms` the kernel's device time (profiler),
+    # `call_ms` the wrapper's call (CUDA events, launch overhead included),
+    # `plain_ms` the plain version
+    blocks = [big[i:i + INTEGRITY_BLOCK]
+              for i in range(0, 128 * INTEGRITY_BLOCK, INTEGRITY_BLOCK)]
+    key, nonce = CIPHER_KEYS[0]
+    out = {}
+    for name, kern, wrap, plain, kname in (
+            ("stream_cipher", lambda x: SCK.cipher(x, key, nonce),
+             lambda x: scops.stream_cipher(x, key, nonce),
+             lambda x: scref.stream_cipher_torch(x, key, nonce),
+             SCK.KERNEL_NAME),
+            ("fletcher", FLK.fletcher, flops.fletcher_checksum,
+             flref.fletcher_checksum_torch, FLK.KERNEL_NAME)):
+        legs = {}
+        for leg, xs, iters, plain_iters in (
+                ("1MiB", blocks, 100, 20), (f"{size >> 20}MiB", [big], 10, 3)):
+            turn = itertools.cycle(xs)
+            ms = kernel_device_ms(lambda: kern(next(turn)), iters, kname)
+            call_ms = cuda_ms(lambda: wrap(next(turn)), iters)
+            plain_ms = cuda_ms(lambda: plain(next(turn)), plain_iters)
+            bound = integrity_bound(name, xs[0].numel())
+            legs[leg] = {"n_bytes": xs[0].numel(), "ms": ms,
+                         "call_ms": call_ms, "plain_ms": plain_ms, **bound}
+            print(f"{name} at {leg}: kernel {ms:.6f} ms on the device, "
+                  f"{call_ms:.6f} ms a call, plain {plain_ms:.6f} ms; bound "
+                  f"{bound['bound_ms']:.6f} ms by {bound['bound_by']}: "
+                  f"{bound['bytes']} B / {HBM_BYTES_PER_S:.3g} B/s, "
+                  f"{bound['int_ops']} integer ops / {INT32_OPS:.3g} op/s = "
+                  f"{bound['ops_ms']:.6f} ms")
+        out[name] = {"max_abs_err": worst[name], "legs": legs}
+    return out
+
+
+def integrity_stream_phase(placed: list, expect, seed: int) -> dict:
+    """The main path of the two kernels: the stream direct_phase placed
+    into HBM, cut into 1 MiB blocks, held against the storage path's own
+    numpy twins on the host bytes. Every block's fletcher checksum against
+    media.checksum, and every 16th block's stream_cipher against
+    InlineCrypto.apply at the engine's nonce oid * 2^20 + block, with an
+    oid >= 4096 so that the nonce's high half is folded into the key
+    (`_prf_words`); and one partial block at a byte offset that is not a
+    multiple of 4, through the word-offset nonce of the keystream."""
+    import torch
+    from repro_torch.core import media
+    from repro_torch.core.smartnic import InlineCrypto
+    from repro_torch.kernels.fletcher import ops as flops
+    from repro_torch.kernels.stream_cipher import ops as scops
+
+    blocks = []
+    for t in placed:
+        raw = t.reshape(-1).view(torch.uint8)
+        blocks += [raw[i:i + INTEGRITY_BLOCK]
+                   for i in range(0, raw.numel(), INTEGRITY_BLOCK)]
+    check(len(blocks) * INTEGRITY_BLOCK == len(expect),
+          f"{len(blocks)} blocks of {INTEGRITY_BLOCK} B for {len(expect)} B")
+    host = memoryview(expect)
+    crypto = InlineCrypto((0xC0FFEE << 32) + seed, cache_bytes=0)
+    oid = 4096 + 7
+
+    def engine_nonce(b: int, offset: int = 0) -> tuple:
+        nonce = oid * (1 << 20) + b
+        key = int(crypto.key) ^ crypto._fmix32(nonce >> 32)
+        return key, (nonce + offset // 4) & 0xFFFFFFFF
+
+    flops.reset_launches()
+    scops.reset_launches()
+    t0 = time.perf_counter()
+    sums = [flops.fletcher_checksum(blk).view(torch.int32) for blk in blocks]
+    card = [(s1 & 0xFFFFFFFF) | ((s2 & 0xFFFFFFFF) << 32)
+            for s1, s2 in torch.stack(sums).cpu().tolist()]
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = [media.checksum(host[b * INTEGRITY_BLOCK:(b + 1) * INTEGRITY_BLOCK])
+            for b in range(len(blocks))]
+    host_s = time.perf_counter() - t0
+    bad = [b for b in range(len(blocks)) if card[b] != want[b]]
+    check(not bad, f"fletcher != media.checksum on blocks {bad[:8]}")
+
+    ciphered = list(range(0, len(blocks), 16))
+    for b in ciphered:
+        got = scops.stream_cipher(blocks[b], *engine_nonce(b))
+        ref_bytes = crypto.apply(
+            host[b * INTEGRITY_BLOCK:(b + 1) * INTEGRITY_BLOCK],
+            nonce=oid * (1 << 20) + b)
+        check(np.array_equal(got.cpu().numpy(), ref_bytes),
+              f"stream_cipher != InlineCrypto.apply on block {b}")
+    b, offset, n = 5, 4099, 300001          # offset % 4 == 3
+    head = offset % 4
+    got = scops.stream_cipher(blocks[b][offset - head:offset + n],
+                              *engine_nonce(b, offset))[head:]
+    base = b * INTEGRITY_BLOCK + offset
+    check(np.array_equal(got.cpu().numpy(), crypto.apply(
+        host[base:base + n], nonce=oid * (1 << 20) + b, offset=offset)),
+        f"stream_cipher != InlineCrypto.apply at block {b} byte {offset}")
+    torch.cuda.synchronize()
+    launches = {"stream_cipher": scops.launches()["cipher"],
+                "fletcher": flops.launches()["checksum"]}
+    print(f"integrity on the placed stream: {len(blocks)} blocks' fletcher "
+          f"equal to media.checksum (card {card_s:.3f} s with the copy back, "
+          f"host {host_s:.3f} s), {len(ciphered)} blocks and a partial one "
+          f"at byte {offset} ciphered equal to InlineCrypto.apply; "
+          f"launches {launches}")
+    check(launches == {"stream_cipher": len(ciphered) + 1,
+                       "fletcher": len(blocks)},
+          f"launches {launches} != what the step makes")
+    return {"blocks": len(blocks), "ciphered_blocks": len(ciphered) + 1,
+            "launches": launches, "card_checksum_s": card_s,
+            "host_checksum_s": host_s}
 
 
 # -- phase 7: serving granite-3-2b at full width from the store ---------------
@@ -1621,6 +1870,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels.rs_parity import kernel as K
     from repro_torch.kernels.rs_parity import ops
     from repro_torch.kernels.rwkv6_scan import kernel as WK
+    from repro_torch.kernels.fletcher import kernel as FLK
+    from repro_torch.kernels.stream_cipher import kernel as SCK
 
     size = args.stream_mib * MiB
     if args.stream_mib != 1024:
@@ -1649,6 +1900,9 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         scans = scan_phase(args.seed)
         times["scans_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        integrity = integrity_phase(args.seed, size)
+        times["integrity_s"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
         client = ROS2Client(mode="host", transport="rdma", n_targets=8,
@@ -1664,9 +1918,15 @@ def main(argv=None) -> int:
                 check(launches[leg] > 0, f"no {leg} launch on the main path")
 
             t0 = time.perf_counter()
-            direct = direct_phase(client, "/stream", expect, 64 * MiB, 4,
-                                  4 * MiB)
+            direct, placed = direct_phase(client, "/stream", expect,
+                                          64 * MiB, 4, 4 * MiB)
             times["direct_s"] = time.perf_counter() - t0
+
+            t0 = time.perf_counter()
+            stream = integrity_stream_phase(
+                placed[:size // (4 * MiB)], expect, args.seed)
+            del placed
+            times["integrity_stream_s"] = time.perf_counter() - t0
         finally:
             client.close()
 
@@ -1708,6 +1968,7 @@ def main(argv=None) -> int:
     total = sum(launches[leg] for leg in ("encode", "delta", "decode"))
     print("phase wall times (s):", json.dumps(times))
     print("direct placement:", json.dumps(direct))
+    print("integrity on the placed stream:", json.dumps(stream))
     print("serve:", json.dumps(serve))
     for arch, stats in rec_serve.items():
         print(f"serve {arch}:", json.dumps(stats))
@@ -1753,7 +2014,18 @@ def main(argv=None) -> int:
         "call_ms": wkv["call_ms"], "plain_ms": wkv["plain_ms"],
         "bound_ms": wkv["bound_ms"], "bound_by": wkv["bound_by"],
         "library_ms": None, "shape": wkv["shape"], "flops": wkv["flops"],
-        "bytes": wkv["bytes"]}]}))
+        "bytes": wkv["bytes"]}] + [{
+        "name": name, "route": "cuda", "source": kern.SOURCE,
+        "replaces": kern.REPLACES, "launches": stream["launches"][name],
+        "max_abs_err": integrity[name]["max_abs_err"],
+        "ms": integrity[name]["legs"]["1MiB"]["ms"],
+        "call_ms": integrity[name]["legs"]["1MiB"]["call_ms"],
+        "plain_ms": integrity[name]["legs"]["1MiB"]["plain_ms"],
+        "bound_ms": integrity[name]["legs"]["1MiB"]["bound_ms"],
+        "bound_by": integrity[name]["legs"]["1MiB"]["bound_by"],
+        "library_ms": None, "shape": {"n_bytes": INTEGRITY_BLOCK},
+        "legs": integrity[name]["legs"]}
+        for name, kern in (("stream_cipher", SCK), ("fletcher", FLK))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -51,8 +51,8 @@ adjacent bounce buffer — with per-block nonces and block-absolute
 keystream offsets (partial-block reads decrypt at the stream position the
 write used), identically on the zero-copy and legacy paths so both
 interoperate on the same stored bytes. The keystream PRF is bit-identical
-to the stream_cipher Pallas kernel, and warm keystream pages come from an
-LRU (no PRF regeneration).
+to the port's stream_cipher kernel (`kernels/stream_cipher`), and warm
+keystream pages come from an LRU (no PRF regeneration).
 
 `zero_copy=False` reproduces the plain scatter-gather path (tobytes per
 block, verify every read, no donation, per-descriptor TCP requests);

@@ -237,8 +237,8 @@ def _fletcher_weights(n_words: int) -> "np.ndarray":
 
 def fletcher64(data) -> int:
     """Vectorized Fletcher-64 extent checksum over little-endian u32 words
-    (zero-padded), identical to the fletcher Pallas kernel / fletcher_np
-    oracle: s1 = sum w_i mod 2^32, s2 = sum (N-i) w_i mod 2^32, packed
+    (zero-padded), identical to the port's fletcher kernel
+    (`kernels/fletcher`) and its fletcher_np oracle: s1 = sum w_i mod 2^32, s2 = sum (N-i) w_i mod 2^32, packed
     (s2 << 32) | s1. Unlike CRC's bit-serial polynomial division this is
     three SIMD passes, so the engine's per-replica-read verify costs
     ~0.5 ms/MiB instead of ~1.2 ms/MiB on this host."""
@@ -264,6 +264,7 @@ def crc32_checksum(data) -> int:
 
 def checksum(data) -> int:
     """End-to-end extent checksum (DAOS-style). Fletcher-64 wide checksum —
-    the fletcher Pallas kernel is the TPU-side equivalent (bit-identical
-    packing), so device-direct placement can re-verify on-device."""
+    the port's fletcher kernel (`kernels/fletcher`) is the card-side
+    equivalent (bit-identical packing), so device-direct placement can
+    re-verify on the card."""
     return fletcher64(data)

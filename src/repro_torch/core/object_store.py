@@ -1037,8 +1037,8 @@ class ObjectStore:
     """The DAOS I/O engine's storage core (one per storage server).
 
     `csum` selects the end-to-end extent checksum: the default is the
-    vectorized Fletcher-64 (media.checksum, matching the fletcher Pallas
-    kernel); pass media.crc32_checksum to reproduce the seed's scalar CRC
+    vectorized Fletcher-64 (media.checksum, matching the port's fletcher
+    kernel, `kernels/fletcher`); pass media.crc32_checksum to reproduce the seed's scalar CRC
     path (the `legacy=True` benchmark baseline)."""
 
     def __init__(self, devices: List[Device],

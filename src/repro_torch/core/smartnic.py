@@ -79,9 +79,10 @@ class InlineCrypto:
     """Counter-mode XOR keystream applied on the DPU data path.
 
     The PRF is the murmur3-finalizer over (u32 word counter + nonce) —
-    bit-identical to the stream_cipher Pallas kernel (`keystream_u32`), so
-    bytes encrypted inline by the DPU can be decrypted on-device by the
-    TPU kernel and vice versa.
+    bit-identical to the port's stream_cipher kernel
+    (`kernels/stream_cipher`, `ref.keystream_u32`), so bytes encrypted
+    inline by the DPU can be decrypted on the card by that kernel and vice
+    versa.
 
     Keystream pages (KEYSTREAM_PAGE bytes of stream per (nonce, page)) are
     memoized in an LRU so steady-state re-reads of the same blocks pay zero
@@ -122,8 +123,9 @@ class InlineCrypto:
         """murmur3-finalizer keystream words [first_word, first_word+n).
         Nonce bits >= 32 are folded into the key (fmix32 of the high half)
         rather than discarded, so two streams whose nonces agree mod 2^32
-        (e.g. oids 4096 apart) never share a keystream; the TPU kernel
-        decrypts such streams by receiving the same folded key."""
+        (e.g. oids 4096 apart) never share a keystream; the
+        `kernels/stream_cipher` kernel decrypts such streams by receiving
+        the same folded key."""
         key = self.key ^ np.uint32(self._fmix32(nonce >> 32))
         idx = np.arange(first_word, first_word + n_words, dtype=np.uint32)
         with np.errstate(over="ignore"):

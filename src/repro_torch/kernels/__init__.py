@@ -13,4 +13,8 @@ and ref.py (the numpy oracle and the plain PyTorch version).
                     adjoint in reverse (training)
   rwkv6_scan      — the chunked RWKV6 WKV recurrence of the ssm family's
                     time-mix blocks (prefill)
+  stream_cipher   — the counter-mode XOR keystream of the storage path's
+                    inline crypto (core/smartnic.py InlineCrypto), on the card
+  fletcher        — the wide Fletcher extent checksum of the storage engine
+                    (core/media.py fletcher64), on the card
 """

@@ -3,7 +3,9 @@ versions, device-direct placement into GPU memory, the EC path's parity
 legs through rs_matmul, a small model's prefill through
 flash_attention_fwd and its train step through flash_attention_bwd, and
 the RG-LRU and RWKV6 scans (rglru_scan forward and reverse, wkv6) with
-the small hybrid and ssm models that serve through them.
+the small hybrid and ssm models that serve through them, and the storage
+path's stream cipher and Fletcher checksum (bit-exact with their plain
+versions, the inline crypto and the engine checksum).
 Every test here needs a card and skips
 without one; on the card run them with
 
@@ -35,6 +37,12 @@ from repro_torch.kernels.rglru_scan import ref as rref
 from repro_torch.kernels.rwkv6_scan import kernel as WK
 from repro_torch.kernels.rwkv6_scan import ops as wops
 from repro_torch.kernels.rwkv6_scan import ref as wref
+from repro_torch.kernels.fletcher import kernel as FLK
+from repro_torch.kernels.fletcher import ops as flops
+from repro_torch.kernels.fletcher import ref as flref
+from repro_torch.kernels.stream_cipher import kernel as SCK
+from repro_torch.kernels.stream_cipher import ops as scops
+from repro_torch.kernels.stream_cipher import ref as scref
 
 MiB = 1 << 20
 pytestmark = pytest.mark.cuda
@@ -522,3 +530,97 @@ def test_small_recurrent_models_serve_through_the_kernels(cuda_device, name):
         out[impl] = steps
     for a, b in zip(out["flash"], out["jnp"]):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit equality through u8 views (torch has few ops for uint32)."""
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def _storage_inputs(dev):
+    """(name, tensor) pairs: the reference's test shapes, ragged u8,
+    narrow dtypes and u8 views that start 1, 2 and 3 bytes into a word."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    out = []
+    for n in (1, 4, 7, 100, 256, 2048, 2049, 4096, 8193, 10000):
+        out.append((f"u32 n={n}", torch.randint(
+            -2**31, 2**31, (n,), generator=gen, device=dev,
+            dtype=torch.int32).view(torch.uint32)))
+    for n in (1, 3, 999, 1013, 4099, 1 << 20):
+        out.append((f"u8 n={n}", torch.randint(
+            0, 256, (n,), generator=gen, device=dev, dtype=torch.uint8)))
+    buf = torch.randint(0, 256, (10003,), generator=gen, device=dev,
+                        dtype=torch.uint8)
+    for start in (1, 2, 3):
+        view = buf[start:start + 9001]
+        assert view.data_ptr() % 4 != 0
+        out.append((f"u8 at byte {start}", view))
+    f = torch.randn(333, generator=gen, device=dev)
+    out += [("float32", f), ("bfloat16", f.bfloat16()),
+            ("float16", f.half()), ("int16", (f * 1000).to(torch.int16))]
+    return out
+
+
+@pytest.mark.parametrize("key,nonce", [(0xC0FFEE, 42), (1, 2),
+                                       ((1 << 32) + 7, (1 << 40) + 9),
+                                       (0xFFFFFFFF, 0xFFFFFFFF)])
+def test_stream_cipher_kernel_matches_plain_version_on_card(
+        cuda_device, key, nonce):
+    for name, x in _storage_inputs(cuda_device):
+        if x.dtype not in (torch.uint8, torch.uint32):
+            continue
+        got = scops.stream_cipher(x, key, nonce)
+        want = scref.stream_cipher_torch(x, key, nonce)
+        torch.cuda.synchronize()
+        assert _same_bits(got, want), name
+        assert _same_bits(scops.stream_cipher(got, key, nonce),
+                          x.reshape(-1)), f"not an involution: {name}"
+    words = torch.arange(5000, dtype=torch.int32).view(torch.uint32)
+    np.testing.assert_array_equal(
+        scops.stream_cipher(words.to(cuda_device), key, nonce).cpu().numpy(),
+        scref.cipher_ref(words.numpy(), key, nonce))
+
+
+def test_fletcher_kernel_matches_plain_version_on_card(cuda_device):
+    for name, x in _storage_inputs(cuda_device):
+        got = flops.fletcher_checksum(x)
+        want = flref.fletcher_checksum_torch(x)
+        torch.cuda.synchronize()
+        assert got.device == x.device and _same_bits(got, want), name
+    data = np.random.default_rng(8).integers(0, 256, 8193, np.uint8)
+    from repro_torch.core import media
+    assert flops.packed(flops.fletcher_checksum(
+        torch.from_numpy(data).to(cuda_device))) == media.checksum(
+            data.tobytes())
+
+
+def test_storage_kernels_count_their_launches(cuda_device):
+    x = torch.randint(0, 256, (4097,), dtype=torch.uint8, device=cuda_device)
+    scops.reset_launches()
+    flops.reset_launches()
+    scops.stream_cipher(x, 1, 2)
+    scops.stream_cipher(x.view(-1)[:0], 1, 2)           # empty: no launch
+    flops.fletcher_checksum(x)
+    flops.fletcher_checksum(x[:0])
+    flops.fletcher_checksum(x.cpu())                    # plain version
+    assert scops.launches() == {"cipher": 1}
+    assert flops.launches() == {"checksum": 1}
+    assert _same_bits(flops.fletcher_checksum(x[:0]),
+                      torch.zeros(2, dtype=torch.int32,
+                                  device=cuda_device).view(torch.uint32))
+
+
+def test_storage_kernels_refuse_what_they_do_not_take(cuda_device):
+    x = torch.randint(0, 256, (64, 64), dtype=torch.uint8, device=cuda_device)
+    for fn in (lambda t: SCK.cipher(t, 1, 2), FLK.fletcher):
+        with pytest.raises(ValueError):                 # strided
+            fn(x.t())
+        with pytest.raises(ValueError):                 # float32
+            fn(x.float())
+        with pytest.raises(ValueError):                 # on the CPU
+            fn(x.cpu())
+        with pytest.raises(ValueError):                 # empty
+            fn(x[:0])
+    with pytest.raises(TypeError):
+        scops.stream_cipher(x.float(), 1, 2)

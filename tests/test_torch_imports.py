@@ -34,7 +34,8 @@ def test_importing_every_module_pulls_in_neither_jax_nor_repro():
     for mod in ("core.client", "kernels.rs_parity.kernel",
                 "kernels.flash_attention.kernel_bwd", "train.optimizer",
                 "train.trainer", "data.pipeline", "distributed.checkpoint",
-                "distributed.fault", "launch.train"):
+                "distributed.fault", "launch.train",
+                "kernels.stream_cipher.kernel", "kernels.fletcher.kernel"):
         assert f"repro_torch.{mod}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

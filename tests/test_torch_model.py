@@ -28,7 +28,7 @@ from repro_torch.models.params import (count_params, init_params,
                                        params_from_numpy, params_to_numpy)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
-ARCHS = ["granite-3-2b", "gemma-7b"]
+ARCHS = ["granite-3-2b", "gemma-7b", "qwen3-14b", "nemotron-4-15b"]
 IMPLS = ["jnp", "flash"]
 B, T = 2, 24
 
@@ -77,7 +77,10 @@ def test_param_defs_and_count_match(name):
     # (over the last-but-one dim, which for w_q is the head axis)
     assert abs(float(params["embed"].std()) - 0.02) < 2e-3
     assert torch.equal(params["ln_f"], torch.ones(cfg.d_model))
-    for group, key in (("attn", "w_q"), ("attn", "w_o"), ("mlp", "w_down")):
+    # the MLP's output projection: w_down when gated, w_out when not
+    # (nemotron-4-15b's squared-ReLU MLP)
+    down = "w_down" if "w_down" in params["blocks"]["mlp"] else "w_out"
+    for group, key in (("attn", "w_q"), ("attn", "w_o"), ("mlp", down)):
         got = float(params["blocks"][group][key].std())
         want = float(jnp.std(ref_params["blocks"][group][key]))
         assert abs(got / want - 1.0) < 0.1, (key, got, want)
