@@ -9,7 +9,11 @@ result):
   1. card      the card's name and power limit, as nvidia-smi reports them;
      build     builds every kernel of csrc/ cold (seven sources), one nvcc
                per source, all started together, and prints the ptxas
-               reports;
+               reports; then counts the HGMMA and HMMA instructions of each
+               bf16 flash kernel in its SASS (cuobjdump) and fails unless
+               the forward's hold wgmma and the backward's tensor-core
+               instructions, with their registers, spills and shared
+               memory a CTA;
   2. kernels   holds rs_matmul bit-exact against its plain PyTorch version
                on the card (encode, decode, delta, ragged and unaligned
                shapes), then times both at the shapes the main path gives
@@ -17,12 +21,15 @@ result):
   3. flash     holds flash_attention_fwd's out and lse against its plain
                version on the card, in bfloat16 and float32 (MHA, GQA,
                MQA, window, softcap, non-causal, ragged, head_dim 128 and
-               256, the serve shape), then times the kernel, its plain
-               version and PyTorch's scaled_dot_product_attention (the
+               256, padded keys, T and S below and around the bf16
+               tiles, a group of 32, the serve shape), then times the
+               kernel, its plain version and PyTorch's
+               scaled_dot_product_attention (the
                library yardstick, used nowhere in the port) at the serve
                shape; holds flash_attention_bwd's dq, dk and dv against
                its plain version in both types (GQA, MQA, window, ragged,
-               head_dim 128 and 256, the train and serve shapes), then
+               head_dim 128 and 256, padded keys, the tile edges, a
+               group of 32, the train and serve shapes), then
                times it, its plain version and the backward of
                scaled_dot_product_attention at the serve and train shapes;
      scans     holds rglru_scan against its plain version (the reference's
@@ -280,6 +287,74 @@ def build_phase() -> dict:
     return secs
 
 
+# -- build, continued: the bf16 flash kernels run on the tensor cores -------
+TC_KERNELS = {  # library -> (name of its bf16 kernels, SASS opcodes, count)
+    "flash_attention_fwd": ("flash_fwd_kernel_tc", ("HGMMA",), 3),
+    "flash_attention_bwd": ("_kernel_tc", ("HMMA", "HGMMA"), 6)}
+
+
+def tensor_core_phase() -> dict:
+    """For each bf16 flash kernel (one per head dim, two for the backward):
+    the count of HGMMA and HMMA instructions in its SASS (`cuobjdump
+    -sass`), its registers and spill bytes (ptxas's report of the build
+    phase) and its dynamic shared memory a CTA (the library's own query).
+    Fails unless every bf16 kernel holds a tensor-core instruction of its
+    design (wgmma for the forward)."""
+    import ctypes
+    import os
+    import re
+    import shutil
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import kernel_bwd as FKB
+    tool = shutil.which("cuobjdump") or str(Path(os.environ.get(
+        "CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
+    kernels: dict = {}
+    for lib_name, mod in (("flash_attention_fwd", FK),
+                          ("flash_attention_bwd", FKB)):
+        lib = mod._lib()
+        res = subprocess.run([tool, "-sass", lib._name], capture_output=True,
+                             text=True, timeout=300, check=True)
+        funcs: dict = {}
+        name = None
+        for line in res.stdout.splitlines():
+            found = re.search(r"Function : (\S+)", line)
+            if found:
+                name = found.group(1)
+                funcs[name] = {"HGMMA": 0, "HMMA": 0}
+            elif name is not None:
+                for op in ("HGMMA", "HMMA"):
+                    if re.search(rf"\b{op}\.", line):
+                        funcs[name][op] += 1
+        name = None
+        for line in _build.build_logs.get(lib_name, "").splitlines():
+            found = re.search(r"Compiling entry function '(\S+)'", line)
+            if found:
+                name = found.group(1)
+            elif name in funcs and "spill stores" in line:
+                funcs[name]["spill_bytes"] = sum(
+                    int(n) for n in re.findall(r"(\d+) bytes spill", line))
+            elif name in funcs and "Used" in line:
+                funcs[name]["registers"] = int(
+                    re.search(r"Used (\d+) registers", line).group(1))
+        tag, ops, want = TC_KERNELS[lib_name]
+        query = getattr(lib, lib_name + "_smem")
+        query.restype = ctypes.c_int
+        tc = {f: c for f, c in funcs.items() if tag in f}
+        for f, c in tc.items():
+            d = int(re.search(r"ILi(\d+)E", f).group(1))    # head dim
+            c["smem_bytes"] = (query(d) if lib_name == "flash_attention_fwd"
+                               else query(d, int("dkv" in f)))
+            check(sum(c[op] for op in ops) > 0,
+                  f"{lib_name}: bf16 kernel {f} has no {'/'.join(ops)}")
+        for f, c in sorted(funcs.items()):
+            print(f"  sass {lib_name}: {f}: {json.dumps(c)}")
+        check(len(tc) == want, f"{lib_name}: {len(tc)} bf16 kernels, not "
+              f"{want}")
+        kernels[lib_name] = tc
+    return kernels
+
+
 # -- phase 2: the kernel against its plain version ----------------------------
 def kernel_phase(seed: int) -> dict:
     import torch
@@ -498,17 +573,28 @@ def direct_phase(client, path: str, expect, slot_bytes: int,
 
 
 # -- phase 3: flash attention against its plain version -----------------------
-FLASH_CASES = [  # B, T, S, H, KH, D, causal, window, softcap
-    (1, 128, 128, 4, 4, 64, True, None, None),      # MHA causal
-    (2, 128, 128, 4, 2, 64, True, None, None),      # GQA
-    (1, 256, 256, 4, 1, 64, True, None, None),      # MQA
-    (1, 256, 256, 2, 2, 64, True, 64, None),        # local window
-    (1, 128, 128, 2, 2, 64, True, None, 30.0),      # softcap
-    (1, 128, 128, 2, 2, 64, False, None, None),     # full (non-causal)
-    (1, 100, 100, 2, 2, 64, True, None, None),      # non-multiple T/S
-    (1, 128, 128, 2, 2, 128, True, None, None),     # head_dim 128
-    (2, 200, 200, 4, 2, 256, True, None, None),     # head_dim 256, ragged
-    (4, 1024, 1024, 32, 8, 64, True, None, None),   # the serve shape
+FLASH_CASES = [  # B, T, S, H, KH, D, causal, window, softcap, seq_k
+    (1, 128, 128, 4, 4, 64, True, None, None, None),      # MHA causal
+    (2, 128, 128, 4, 2, 64, True, None, None, None),      # GQA
+    (1, 256, 256, 4, 1, 64, True, None, None, None),      # MQA
+    (1, 256, 256, 2, 2, 64, True, 64, None, None),        # local window
+    (1, 128, 128, 2, 2, 64, True, None, 30.0, None),      # softcap
+    (1, 128, 128, 2, 2, 64, False, None, None, None),     # full (non-causal)
+    (1, 100, 100, 2, 2, 64, True, None, None, None),      # non-multiple T/S
+    (1, 128, 128, 2, 2, 128, True, None, None, None),     # head_dim 128
+    (2, 200, 200, 4, 2, 256, True, None, None, None),     # head_dim 256
+    # the edges of the bf16 kernel's tiles (BQ = 128, BK = 128 or 64)
+    (1, 17, 17, 2, 2, 64, True, None, None, None),        # below one tile
+    (1, 17, 40, 2, 1, 128, False, None, None, None),      # T != S, both small
+    (1, 127, 127, 4, 2, 64, True, None, None, None),
+    (1, 129, 129, 4, 2, 128, True, None, None, None),
+    (2, 200, 200, 4, 2, 64, True, None, None, None),
+    (1, 200, 256, 4, 2, 64, True, 64, None, 230),         # seq_k < S, window
+    (1, 150, 192, 2, 2, 128, True, 48, 30.0, 160),        # and softcap
+    (1, 130, 130, 2, 2, 64, False, None, 20.0, 100),
+    (1, 200, 200, 2, 1, 256, True, None, None, None),     # head_dim 256 ragged
+    (1, 100, 100, 32, 1, 64, True, None, None, None),     # MQA, a group of 32
+    (4, 1024, 1024, 32, 8, 64, True, None, None, None),   # the serve shape
 ]
 SERVE_SHAPE = (4, 1024, 32, 8, 64)                  # B, T=S, H, KH, D
 # tests/test_kernels.py:56, the reference's own tolerances
@@ -540,16 +626,23 @@ def flash_phase(seed: int) -> dict:
     n_checks = 0
     for dname in ("bfloat16", "float32"):
         dt, tol = getattr(torch, dname), FLASH_TOL[dname]
-        for B, T, S, H, KH, D, causal, window, softcap in FLASH_CASES:
+        for B, T, S, H, KH, D, causal, window, softcap, seq_k in FLASH_CASES:
             q = torch.randn(B, T, H, D, generator=gen, device="cuda").to(dt)
             k = torch.randn(B, S, KH, D, generator=gen, device="cuda").to(dt)
             v = torch.randn(B, S, KH, D, generator=gen, device="cuda").to(dt)
             kw = dict(causal=causal, window=window, softcap=softcap)
-            out, lse = ops.flash_attention(q, k, v, block_q=64, block_k=64,
-                                           return_lse=True, **kw)
-            want, want_lse = ref.attention_ref(q, k, v, return_lse=True, **kw)
+            if seq_k is None:
+                out, lse = ops.flash_attention(q, k, v, block_q=64,
+                                               block_k=64, return_lse=True,
+                                               **kw)
+            else:   # padded keys: the wrapper takes seq_k, ops does not
+                out, lse = K.flash_attention_fwd(q, k, v, scale=D ** -0.5,
+                                                 seq_k=seq_k, **kw)
+            want, want_lse = ref.attention_ref(q, k, v, return_lse=True,
+                                               seq_k=seq_k, **kw)
             torch.cuda.synchronize()
-            what = f"{dname} B={B} T={T} H={H} KH={KH} D={D} {kw}"
+            what = (f"{dname} B={B} T={T} S={S} H={H} KH={KH} D={D} {kw} "
+                    f"seq_k={seq_k}")
             for got, exp, name in ((out, want, "out"), (lse, want_lse, "lse")):
                 err, ok = in_tolerance(got, exp, tol)
                 check(torch.isfinite(got).all().item(), f"{name} not finite: "
@@ -593,16 +686,24 @@ def flash_phase(seed: int) -> dict:
 
 
 # -- phase 3, continued: the flash backward against its plain version ---------
-BWD_CASES = [  # B, T, H, KH, D, window: the reference's (tests/test_kernels.py
-    # :275-283), head_dim 256, and the shapes the train and serve paths give
-    (1, 128, 4, 2, 64, None),       # GQA
-    (2, 64, 4, 1, 64, None),        # MQA
-    (1, 128, 2, 2, 64, 32),         # local window
-    (1, 100, 2, 2, 64, None),       # ragged T
-    (1, 128, 2, 2, 128, None),      # head_dim 128
-    (2, 200, 4, 2, 256, None),      # head_dim 256, ragged
-    (4, 256, 12, 4, 64, None),      # the train shape
-    (4, 1024, 32, 8, 64, None),     # the serve shape
+BWD_CASES = [  # B, T, S, H, KH, D, window, seq_k: the reference's
+    # (tests/test_kernels.py:275-283), head_dim 256, the shapes the train and
+    # serve paths give, and the edges of the bf16 kernels' tiles
+    (1, 128, 128, 4, 2, 64, None, None),       # GQA
+    (2, 64, 64, 4, 1, 64, None, None),         # MQA
+    (1, 128, 128, 2, 2, 64, 32, None),         # local window
+    (1, 100, 100, 2, 2, 64, None, None),       # ragged T
+    (1, 128, 128, 2, 2, 128, None, None),      # head_dim 128
+    (2, 200, 200, 4, 2, 256, None, None),      # head_dim 256, ragged
+    (1, 17, 17, 2, 2, 64, None, None),         # below one tile
+    (1, 127, 127, 4, 2, 64, None, None),
+    (1, 129, 129, 4, 2, 128, None, None),
+    (1, 200, 256, 4, 2, 64, 64, 230),          # seq_k < S, window, T != S
+    (1, 150, 192, 2, 2, 128, 48, 160),
+    (1, 200, 200, 2, 1, 256, None, None),      # head_dim 256 ragged, MQA
+    (1, 100, 100, 32, 1, 64, None, None),      # MQA, a group of 32
+    (4, 256, 256, 12, 4, 64, None, None),      # the train shape
+    (4, 1024, 1024, 32, 8, 64, None, None),    # the serve shape
 ]
 TRAIN_SHAPE = (4, 256, 12, 4, 64)   # one microbatch of dense-100m's step
 # tests/test_kernels.py:303, the reference's backward tolerances
@@ -629,31 +730,41 @@ def flash_bwd_bound(B: int, T: int, H: int, KH: int, D: int,
 def flash_bwd_phase(seed: int) -> dict:
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention import kernel_bwd as KB
     from repro_torch.kernels.flash_attention import ops, ref
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
 
-    def inputs(B, T, H, KH, D, dt):
-        return [torch.randn(B, T, h, D, generator=gen, device="cuda").to(dt)
-                for h in (H, KH, KH, H)]
+    def inputs(B, T, H, KH, D, dt, S=None):
+        S = T if S is None else S
+        return [torch.randn(B, n, h, D, generator=gen, device="cuda").to(dt)
+                for n, h in ((T, H), (S, KH), (S, KH), (T, H))]
 
     worst = {"bfloat16": 0.0, "float32": 0.0}
     n_checks = 0
     for dname in ("bfloat16", "float32"):
         dt, tol = getattr(torch, dname), BWD_TOL[dname]
-        for B, T, H, KH, D, window in BWD_CASES:
-            q, k, v, dout = inputs(B, T, H, KH, D, dt)
+        for B, T, S, H, KH, D, window, seq_k in BWD_CASES:
+            q, k, v, dout = inputs(B, T, H, KH, D, dt, S)
             scale = D ** -0.5
-            out, lse = ops.flash_attention(q, k, v, window=window,
-                                           return_lse=True)
-            got = ops.flash_attention_backward(q, k, v, out, lse, dout,
-                                               scale=scale, window=window)
-            want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
-                                               scale=scale, causal=True,
-                                               window=window, seq_k=T)
+            out, lse = FK.flash_attention_fwd(q, k, v, scale=scale,
+                                              window=window, seq_k=seq_k)
+            if seq_k is None:
+                got = ops.flash_attention_backward(q, k, v, out, lse, dout,
+                                                   scale=scale,
+                                                   window=window)
+            else:   # padded keys: the wrapper takes seq_k, ops does not
+                delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
+                got = KB.flash_attention_bwd(q, k, v, dout, lse,
+                                             delta.contiguous(), scale=scale,
+                                             window=window, seq_k=seq_k)
+            want = ref.flash_attention_bwd_ref(
+                q, k, v, out, lse, dout, scale=scale, causal=True,
+                window=window, seq_k=S if seq_k is None else seq_k)
             torch.cuda.synchronize()
-            what = f"{dname} B={B} T={T} H={H} KH={KH} D={D} window={window}"
+            what = (f"{dname} B={B} T={T} S={S} H={H} KH={KH} D={D} "
+                    f"window={window} seq_k={seq_k}")
             for g, w, name in zip(got, want, ("dq", "dk", "dv")):
                 check(g.dtype == dt, f"{name} is {g.dtype}: {what}")
                 check(torch.isfinite(g).all().item(),
@@ -1886,6 +1997,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         builds = build_phase()
         times["build_s"] = builds
+        tensor_cores = tensor_core_phase()
 
         t0 = time.perf_counter()
         kern = kernel_phase(args.seed)
@@ -1990,7 +2102,8 @@ def main(argv=None) -> int:
         "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
         "library_ms": flash["library_ms"],
         "max_abs_err_by_dtype": flash["max_abs_err_by_dtype"],
-        "shape": dict(zip(("B", "T", "H", "KH", "D"), SERVE_SHAPE))}, {
+        "shape": dict(zip(("B", "T", "H", "KH", "D"), SERVE_SHAPE)),
+        "bf16_kernels": tensor_cores["flash_attention_fwd"]}, {
         "name": "flash_attention_bwd", "route": "cuda", "source": FKB.SOURCE,
         "replaces": FKB.REPLACES, "launches": train["flash_launches"]["bwd"],
         "max_abs_err": flash_bwd["max_abs_err"], "ms": bwd["ms"],
@@ -1998,7 +2111,8 @@ def main(argv=None) -> int:
         "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
         "library_ms": bwd["library_ms"],
         "max_abs_err_by_dtype": flash_bwd["max_abs_err_by_dtype"],
-        "shape": bwd["shape"], "shapes": flash_bwd["shapes"]}, {
+        "shape": bwd["shape"], "shapes": flash_bwd["shapes"],
+        "bf16_kernels": tensor_cores["flash_attention_bwd"]}, {
         "name": "rglru_scan", "route": "cuda", "source": RGK.SOURCE,
         "replaces": RGK.REPLACES,
         "launches": rec_serve["recurrentgemma-2b"]["kernel_launches"],

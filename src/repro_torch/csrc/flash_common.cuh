@@ -1,11 +1,11 @@
-// Helpers shared by the flash-attention kernels (flash_attention_fwd.cu,
-// flash_attention_bwd.cu): 16-byte element loads and stores for float32
-// and bf16, staging of a tile into float32 shared memory, and float4
-// arithmetic. Arithmetic is float32 throughout.
+// Helpers shared by the float32 flash-attention kernels
+// (flash_attention_fwd.cu, flash_attention_bwd.cu): 16-byte element loads
+// and stores, staging of a tile into float32 shared memory, and float4
+// arithmetic on the CUDA cores; and the finite mask value of all of them.
+// The bf16 kernels take their building blocks from hopper_tc.cuh.
 #pragma once
 
 #include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #define MASK_VALUE (-1e30f)
@@ -22,30 +22,6 @@ struct Elem<float> {
   }
   __device__ static void store4(float* p, float a, float b, float c, float e) {
     *reinterpret_cast<float4*>(p) = make_float4(a, b, c, e);
-  }
-};
-
-template <>
-struct Elem<__nv_bfloat16> {
-  static constexpr int CH = 8;
-  __device__ static void load(const __nv_bfloat16* p, float* d) {
-    const uint4 x = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      d[2 * i] = f.x;
-      d[2 * i + 1] = f.y;
-    }
-  }
-  __device__ static void store4(__nv_bfloat16* p, float a, float b, float c,
-                                float e) {
-    __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
-    __nv_bfloat162 hi = __floats2bfloat162_rn(c, e);
-    uint2 w;
-    w.x = *reinterpret_cast<uint32_t*>(&lo);
-    w.y = *reinterpret_cast<uint32_t*>(&hi);
-    *reinterpret_cast<uint2*>(p) = w;
   }
 };
 

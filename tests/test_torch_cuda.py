@@ -188,26 +188,45 @@ def test_read_tensors_land_on_card(cuda_device):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("B,T,H,KH,D,causal,window,softcap", [
-    (2, 128, 4, 2, 64, True, None, None),       # GQA
-    (1, 100, 4, 1, 128, True, None, None),      # MQA, ragged
-    (1, 96, 2, 2, 256, True, 32, None),         # window, head_dim 256
-    (1, 64, 2, 2, 64, False, None, 30.0),       # non-causal, softcap
+@pytest.mark.parametrize("B,T,S,H,KH,D,causal,window,softcap,seq_k", [
+    (2, 128, 128, 4, 2, 64, True, None, None, None),     # GQA
+    (1, 100, 100, 4, 1, 128, True, None, None, None),    # MQA, ragged
+    (1, 96, 96, 2, 2, 256, True, 32, None, None),        # window, head_dim 256
+    (1, 64, 64, 2, 2, 64, False, None, 30.0, None),      # non-causal, softcap
+    # the edges of the bf16 kernel's tiles (BQ = 128, BK = 128 or 64)
+    (1, 17, 17, 2, 2, 64, True, None, None, None),       # below one tile
+    (1, 17, 40, 2, 1, 128, False, None, None, None),     # T != S, both small
+    (1, 127, 127, 4, 2, 64, True, None, None, None),
+    (1, 129, 129, 4, 2, 128, True, None, None, None),
+    (2, 200, 200, 4, 2, 64, True, None, None, None),
+    (1, 200, 256, 4, 2, 64, True, 64, None, 230),        # seq_k < S, window
+    (1, 150, 192, 2, 2, 128, True, 48, 30.0, 160),       # and softcap
+    (1, 130, 130, 2, 2, 64, False, None, 20.0, 100),
+    (1, 200, 200, 2, 1, 256, True, None, None, None),    # head_dim 256 ragged
+    (1, 100, 100, 32, 1, 64, True, None, None, None),    # MQA, a group of 32
+    (4, 1024, 1024, 32, 8, 64, True, None, None, None),  # the serve shape
 ])
 def test_flash_kernel_matches_plain_version_on_card(
-        cuda_device, B, T, H, KH, D, causal, window, softcap, dtype, tol):
+        cuda_device, B, T, S, H, KH, D, causal, window, softcap, seq_k, dtype,
+        tol):
     """flash_attention_fwd's out and lse against attention_ref on the card,
-    at the reference's tolerances (tests/test_kernels.py:56)."""
-    gen = torch.Generator(device=cuda_device).manual_seed(T + D)
-    q, k, v = (torch.randn(B, T, h, D, generator=gen, device=cuda_device)
-               .to(dtype) for h in (H, KH, KH))
+    at the reference's tolerances (tests/test_kernels.py:56); where keys
+    past seq_k are padding, through the kernel's wrapper, which takes it."""
+    gen = torch.Generator(device=cuda_device).manual_seed(T + S + D)
+    q, k, v = (torch.randn(B, n, h, D, generator=gen, device=cuda_device)
+               .to(dtype) for n, h in ((T, H), (S, KH), (S, KH)))
     kw = dict(causal=causal, window=window, softcap=softcap)
     before = fops.launches()["fwd"]
-    out, lse = fops.flash_attention(q, k, v, block_q=64, block_k=64,
-                                    return_lse=True, **kw)
-    want, want_lse = fref.attention_ref(q, k, v, return_lse=True, **kw)
+    if seq_k is None:
+        out, lse = fops.flash_attention(q, k, v, block_q=64, block_k=64,
+                                        return_lse=True, **kw)
+        assert fops.launches()["fwd"] == before + 1
+    else:
+        out, lse = FK.flash_attention_fwd(q, k, v, scale=D ** -0.5,
+                                          seq_k=seq_k, **kw)
+    want, want_lse = fref.attention_ref(q, k, v, return_lse=True,
+                                        seq_k=seq_k, **kw)
     torch.cuda.synchronize()
-    assert fops.launches()["fwd"] == before + 1
     assert out.dtype == dtype and lse.dtype == torch.float32
     torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(lse, want_lse, atol=tol, rtol=tol)
@@ -269,33 +288,52 @@ def test_small_model_prefill_through_the_kernel(cuda_device):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
                                        (torch.bfloat16, 5e-2)])
-@pytest.mark.parametrize("B,T,H,KH,D,window", [
-    (1, 128, 4, 2, 64, None),       # GQA
-    (2, 64, 4, 1, 64, None),        # MQA
-    (1, 128, 2, 2, 64, 32),         # local window
-    (1, 100, 2, 2, 64, None),       # ragged T
-    (1, 128, 2, 2, 128, None),      # head_dim 128
-    (2, 200, 4, 2, 256, None),      # head_dim 256, ragged
-    (4, 256, 12, 4, 64, None),      # the train shape
+@pytest.mark.parametrize("B,T,S,H,KH,D,window,seq_k", [
+    (1, 128, 128, 4, 2, 64, None, None),       # GQA
+    (2, 64, 64, 4, 1, 64, None, None),         # MQA
+    (1, 128, 128, 2, 2, 64, 32, None),         # local window
+    (1, 100, 100, 2, 2, 64, None, None),       # ragged T
+    (1, 128, 128, 2, 2, 128, None, None),      # head_dim 128
+    (2, 200, 200, 4, 2, 256, None, None),      # head_dim 256, ragged
+    (4, 256, 256, 12, 4, 64, None, None),      # the train shape
+    # the edges of the bf16 kernels' tiles (64 x 64, 32 x 64, 64 x 32)
+    (1, 17, 17, 2, 2, 64, None, None),         # below one tile
+    (1, 127, 127, 4, 2, 64, None, None),
+    (1, 129, 129, 4, 2, 128, None, None),
+    (1, 200, 256, 4, 2, 64, 64, 230),          # seq_k < S, window, T != S
+    (1, 150, 192, 2, 2, 128, 48, 160),
+    (1, 200, 200, 2, 1, 256, None, None),      # head_dim 256 ragged, MQA
+    (1, 100, 100, 32, 1, 64, None, None),      # MQA, a group of 32
+    (4, 1024, 1024, 32, 8, 64, None, None),    # the serve shape
 ])
 def test_flash_bwd_kernel_matches_plain_version_on_card(
-        cuda_device, B, T, H, KH, D, window, dtype, tol):
+        cuda_device, B, T, S, H, KH, D, window, seq_k, dtype, tol):
     """flash_attention_bwd's dq, dk and dv against flash_attention_bwd_ref
     on the same out and lse, at the reference's backward tolerances
-    (tests/test_kernels.py:303)."""
-    gen = torch.Generator(device=cuda_device).manual_seed(T + D + H)
-    q, k, v, dout = (torch.randn(B, T, h, D, generator=gen,
+    (tests/test_kernels.py:303); where keys past seq_k are padding,
+    through the kernel's wrapper, which takes it."""
+    gen = torch.Generator(device=cuda_device).manual_seed(T + S + D + H)
+    q, k, v, dout = (torch.randn(B, n, h, D, generator=gen,
                                  device=cuda_device).to(dtype)
-                     for h in (H, KH, KH, H))
-    out, lse = fops.flash_attention(q, k, v, window=window, return_lse=True)
+                     for n, h in ((T, H), (S, KH), (S, KH), (T, H)))
+    scale = D ** -0.5
+    out, lse = FK.flash_attention_fwd(q, k, v, scale=scale, window=window,
+                                      seq_k=seq_k)
     before = fops.launches()["bwd"]
-    got = fops.flash_attention_backward(q, k, v, out, lse, dout,
-                                        scale=D ** -0.5, window=window)
+    if seq_k is None:
+        got = fops.flash_attention_backward(q, k, v, out, lse, dout,
+                                            scale=scale, window=window)
+        assert fops.launches()["bwd"] == before + 1
+    else:
+        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
+        got = FKB.flash_attention_bwd(q, k, v, dout, lse,
+                                      delta.contiguous(), scale=scale,
+                                      window=window, seq_k=seq_k)
     want = fref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
-                                        scale=D ** -0.5, causal=True,
-                                        window=window, seq_k=T)
+                                        scale=scale, causal=True,
+                                        window=window,
+                                        seq_k=S if seq_k is None else seq_k)
     torch.cuda.synchronize()
-    assert fops.launches()["bwd"] == before + 1
     for g, w, x in zip(got, want, (q, k, v)):
         assert g.dtype == dtype and g.shape == x.shape
         torch.testing.assert_close(g.float(), w, atol=tol, rtol=tol)
