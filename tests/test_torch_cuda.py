@@ -503,6 +503,40 @@ def test_wkv6_kernel_strong_decay_stays_finite(cuda_device):
     torch.testing.assert_close(s, sr, atol=1e-4, rtol=1e-4)
 
 
+def test_wkv6_kernel_mixed_strong_decay_over_many_chunks(cuda_device):
+    """Seven chunks with half the channels at w = 1e-12 and half near 1:
+    finite, and within 1e-4 of the sequential version. The strong
+    channels' exponents underflow in the factored off-diagonal sub-block
+    of every chunk."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    B, T, H, hd = 1, 200, 2, 64
+    r, k, v = (torch.randn(B, T, H, hd, generator=gen, device=cuda_device)
+               for _ in range(3))
+    near = 0.9 + 0.1 * torch.rand(B, T, H, hd, generator=gen,
+                                  device=cuda_device)
+    w = torch.where(torch.arange(hd, device=cuda_device) < hd // 2,
+                    torch.full_like(near, 1e-12), near)
+    u = 0.5 * torch.randn(H, hd, generator=gen, device=cuda_device)
+    y, s = WK.wkv6(r, k, v, w, u)
+    yr, sr = wref.wkv_ref(r, k, v, w, u)
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    torch.testing.assert_close(y, yr, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(s, sr, atol=1e-4, rtol=1e-4)
+
+
+def test_wkv6_kernel_takes_inputs_that_start_off_16_bytes(cuda_device):
+    """A contiguous view one float into its storage gives what the same
+    values at an aligned start give (the wrapper copies it for cp.async)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    xs = _wkv_inputs(gen, 1, 70, 2, 32, cuda_device)
+    flat = torch.empty(1 + xs[0].numel(), device=cuda_device)
+    r = flat[1:].view_as(xs[0])
+    r.copy_(xs[0])
+    assert r.is_contiguous() and r.data_ptr() % 16 != 0
+    for got, want in zip(WK.wkv6(r, *xs[1:]), WK.wkv6(*xs)):
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
 def test_scan_kernels_refuse_what_they_do_not_take(cuda_device):
     x = torch.randn(1, 8, 2, 48, device=cuda_device)
     u = torch.zeros(2, 48, device=cuda_device)
