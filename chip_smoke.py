@@ -17,8 +17,10 @@ result):
                spills and shared memory a CTA;
   2. kernels   holds rs_matmul bit-exact against its plain PyTorch version
                on the card (encode, decode, delta, ragged and unaligned
-               shapes), then times both at the shapes the main path gives
-               the kernel;
+               shapes; L = 4, 8, 12 and 16k + 3 at m = s = 11 and at the
+               encode, from views 0-3 bytes into a word), then times both
+               at the shapes the main path gives the kernel, and the
+               kernel's launch floor at L = 16;
   3. flash     holds flash_attention_fwd's out and lse against its plain
                version on the card, in bfloat16 and float32 (MHA, GQA,
                MQA, window, softcap, non-causal, ragged, head_dim 128 and
@@ -35,6 +37,7 @@ result):
                scaled_dot_product_attention at the serve and train shapes;
      scans     holds rglru_scan against its plain version (the reference's
                shapes, T = 1, ragged R, the prefill shape (4, 1024, 2560),
+               T = 63, 65 and 4096 at R = 2567, a near 1 over 4096 steps,
                ± h0, forward and reverse) to 1e-5 and its backward (the
                kernel reversed) against autograd through the plain version
                to 1e-4; wkv6 against its plain version (the reference's
@@ -45,7 +48,8 @@ result):
                (1, 200, 2, 64)) against its sequential version to 1e-4;
                then times both scans and their plain versions beside their
                bounds at the prefill (and, for rglru_scan, the decode)
-               shape, wkv6's two kernels (state, out) apart and together;
+               shape, rglru_scan's launch floor at (1, 1, 32), wkv6's two
+               kernels (state, out) apart and together;
      integrity holds stream_cipher and fletcher bit-exact against their
                plain versions (the reference's test shapes, key 0xC0FFEE
                and nonce 42, ragged u8, float32, bf16 and u8 of 333
@@ -216,7 +220,7 @@ def kernel_device_ms(fn, iters: int, kernel: str, per_call: int = 1) -> float:
 
 KERNEL_KINDS = (  # substring of a CUDA kernel's name -> what it does
     ("flash_fwd_kernel", "flash fwd"), ("flash_bwd_", "flash bwd"),
-    ("rglru_scan_kernel", "rglru scan"), ("wkv6_kernel", "wkv scan"),
+    ("rglru_scan_", "rglru scan"), ("wkv6_kernel", "wkv scan"),
     ("stream_cipher_kernel", "cipher"), ("fletcher_kernel", "checksum"),
     ("rs_matmul", "parity"), ("nvjet", "matmul"), ("gemm", "matmul"),
     ("gemv", "matmul"), ("xmma", "matmul"), ("cutlass", "matmul"),
@@ -424,6 +428,17 @@ def kernel_phase(seed: int) -> dict:
     check(unaligned.data_ptr() % 16 != 0, "unaligned view is aligned")
     hold(ref.cauchy_matrix(4, 2), unaligned, "unaligned start, L=4097",
          oracle=True)
+    # the nibble-table kernel's edges: whole and ragged words (one word a
+    # thread), 121 coefficients, views that start 1-3 bytes into a word
+    big = rng.integers(0, 256, (11, 11), np.uint8)
+    for n in (4, 8, 12, 16 * 64 + 3, 16 * 16384 + 3):
+        for mat in (big, ref.cauchy_matrix(4, 2)):
+            s = mat.shape[1]
+            flat = rows(1, 3 + s * n)[0]
+            for start in (0, 1, 2, 3):
+                hold(mat, flat[start:start + s * n].view(s, n),
+                     f"m={mat.shape[0]} s={s} L={n} at byte {start}",
+                     oracle=True)
     print(f"rs_matmul bit-exact with its plain version in {n_checks} checks")
 
     # times at the main path's shapes: a 1 MiB stripe's encode (4 -> 2
@@ -439,7 +454,7 @@ def kernel_phase(seed: int) -> dict:
         m, s = mat.shape
         x = rows(s, L)
         ms = kernel_device_ms(lambda: K.rs_matmul(mat, x), 100,
-                              "rs_matmul_kernel")
+                              K.KERNEL_NAME)
         call_ms = cuda_ms(lambda: K.rs_matmul(mat, x), 200)
         plain_ms = cuda_ms(lambda: ref.gf_matmul_torch(mat, x), 10)
         bound_ms = (s + m) * L / HBM_BYTES_PER_S * 1e3
@@ -448,7 +463,17 @@ def kernel_phase(seed: int) -> dict:
         print(f"rs_matmul {leg} (m={m}, s={s}, L={L}): kernel {ms:.6f} ms "
               f"on the device, {call_ms:.6f} ms a call, plain "
               f"{plain_ms:.6f} ms, bound {bound_ms:.6f} ms")
-    return {"max_abs_err": worst, "legs": legs}
+    # the launch floor: the encode at L = 16, one CTA of four live threads
+    mat, x = ref.cauchy_matrix(4, 2), rows(4, 16)
+    floor_ms = kernel_device_ms(lambda: K.rs_matmul(mat, x), 100,
+                                K.KERNEL_NAME)
+    floor_call_ms = cuda_ms(lambda: K.rs_matmul(mat, x), 200)
+    print(f"rs_matmul launch floor (m=2, s=4, L=16): kernel {floor_ms:.6f} "
+          f"ms on the device, {floor_call_ms:.6f} ms a call; the encode "
+          f"leg is {legs['encode']['ms'] - floor_ms:.6f} ms above it, its "
+          f"bound {legs['encode']['bound_ms']:.6f} ms")
+    return {"max_abs_err": worst, "legs": legs, "floor_ms": floor_ms,
+            "floor_call_ms": floor_call_ms}
 
 
 # -- phase 4: the erasure-coded storage path ---------------------------------
@@ -850,7 +875,11 @@ FP32_FLOPS = 67e12              # H100 SXM float32 FMA peak (CUDA cores)
 RGLRU_CASES = [  # B, T, R: the reference's (tests/test_kernels.py:103-104),
     # T = 1 at the decode shape, ragged R, and the prefill shape
     (1, 64, 128), (2, 128, 256), (1, 100, 96), (3, 32, 512),
-    (4, 1, 2560), (2, 77, 1000), (4, 1024, 2560)]
+    (4, 1, 2560), (2, 77, 1000), (4, 1024, 2560),
+    # the chunked kernel's edges: T around one window of a CTA's warps and
+    # 4096 steps, B * R not a multiple of a CTA's 32 channels
+    (2, 63, 2567), (2, 65, 2567), (2, 4096, 2567)]
+RGLRU_FLOOR = (1, 1, 32)            # one CTA of one warp, one step
 RGLRU_PREFILL = (4, 1024, 2560)     # recurrentgemma-2b: B, T, d_rnn
 RGLRU_DECODE = (4, 1, 2560)
 WKV_CASES = [  # B, T, H, hd: the reference's (tests/test_kernels.py:152-154),
@@ -938,6 +967,22 @@ def scan_phase(seed: int) -> dict:
                       f"reverse={reverse}")
                 worst["fwd"] = max(worst["fwd"], err)
                 n_checks += 1
+    # a near 1 over 4096 steps, b scaled by sqrt(1 - a^2) as the model
+    # feeds the scan: carries cross all 64 windows
+    B, T, R = RGLRU_CASES[-1]
+    a = 1 - 1e-3 * torch.rand(B, T, R, generator=gen, device="cuda")
+    b = randn(B, T, R) * torch.sqrt(1 - a * a)
+    h0 = randn(B, R)
+    for reverse in (False, True):
+        got = RGK.rglru_scan(a, b, h0, reverse=reverse)
+        want = rref.rglru_scan_ref(a, b, h0, reverse=reverse)
+        torch.cuda.synchronize()
+        err, ok = in_tolerance(got, want, 1e-5)
+        check(ok, f"rglru_scan off its plain version by {err} with a near "
+              f"1: B={B} T={T} R={R} reverse={reverse}")
+        worst["fwd"] = max(worst["fwd"], err)
+        n_checks += 1
+    del a, b, h0
     for B, T, R in ((2, 96, 200), RGLRU_PREFILL):
         ins = [x.requires_grad_() for x in scan_inputs(B, T, R)]
         ref_ins = [x.detach().clone().requires_grad_() for x in ins]
@@ -1024,6 +1069,17 @@ def scan_phase(seed: int) -> dict:
               f"{bound['bound_by']}: {bound['bytes']} B / "
               f"{HBM_BYTES_PER_S:.3g} B/s, {bound['flops']} FLOP / "
               f"{FP32_FLOPS:.3g} FLOP/s = {bound['ops_ms']:.6f} ms")
+    # the launch floor: one CTA of one warp and one step, with h0
+    a, b, h0 = scan_inputs(*RGLRU_FLOOR)
+    floor_ms = kernel_device_ms(lambda: RGK.rglru_scan(a, b, h0), 50,
+                                RGK.KERNEL_NAME)
+    floor_call_ms = cuda_ms(lambda: rops.rglru_scan(a, b, h0), 50)
+    print(f"rglru_scan launch floor (B, T, R = {RGLRU_FLOOR}, h0): kernel "
+          f"{floor_ms:.6f} ms on the device, {floor_call_ms:.6f} ms a call; "
+          f"prefill {shapes['prefill']['ms'] - floor_ms:.6f} ms above it "
+          f"(bound {shapes['prefill']['bound_ms']:.6f} ms), decode "
+          f"{shapes['decode']['ms'] - floor_ms:.6f} ms (bound "
+          f"{shapes['decode']['bound_ms']:.7f} ms)")
     from repro_torch.kernels.rwkv6_scan import ops as wops
     B, T, H, hd = WKV_PREFILL
     xs = (randn(B, T, H, hd), 0.5 * randn(B, T, H, hd), randn(B, T, H, hd),
@@ -1050,7 +1106,8 @@ def scan_phase(seed: int) -> dict:
           f"{FP32_FLOPS:.3g} FLOP/s = {bound['ops_ms']:.6f} ms")
     return {"rglru": {"max_abs_err": max(worst.values()),
                       "max_abs_err_fwd": worst["fwd"],
-                      "max_abs_err_bwd": worst["bwd"], "legs": shapes},
+                      "max_abs_err_bwd": worst["bwd"], "legs": shapes,
+                      "floor_ms": floor_ms, "floor_call_ms": floor_call_ms},
             "wkv": {"max_abs_err": max(wkv_worst, strong),
                     "strong_decay_max_abs_err": strong, **wkv}}
 
@@ -2137,7 +2194,8 @@ def main(argv=None) -> int:
         "call_ms": enc["call_ms"], "plain_ms": enc["plain_ms"],
         "bound_ms": enc["bound_ms"], "bound_by": "bytes",
         "library_ms": None, "launches_by_leg": launches,
-        "legs": kern["legs"]}, {
+        "legs": kern["legs"], "floor_ms": kern["floor_ms"],
+        "floor_call_ms": kern["floor_call_ms"]}, {
         "name": "flash_attention_fwd", "route": "cuda", "source": FK.SOURCE,
         "replaces": FK.REPLACES, "launches": serve["flash_launches"],
         "max_abs_err": flash["max_abs_err"], "ms": flash["ms"],
@@ -2163,7 +2221,8 @@ def main(argv=None) -> int:
         "call_ms": rgp["call_ms"], "plain_ms": rgp["plain_ms"],
         "bound_ms": rgp["bound_ms"], "bound_by": rgp["bound_by"],
         "library_ms": None, "shape": rgp["shape"],
-        "legs": scans["rglru"]["legs"]}, {
+        "legs": scans["rglru"]["legs"], "floor_ms": scans["rglru"]["floor_ms"],
+        "floor_call_ms": scans["rglru"]["floor_call_ms"]}, {
         "name": "wkv6", "route": "cuda", "source": WK.SOURCE,
         "replaces": WK.REPLACES,
         "launches": rec_serve["rwkv6-1.6b"]["kernel_launches"],

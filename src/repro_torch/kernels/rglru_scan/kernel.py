@@ -3,8 +3,12 @@
 h_t = a_t h_{t-1} + b_t over (B, T, R) float32 on PyTorch's current
 stream, forward or (with `reverse`) from the last step down. It replaces
 the TPU kernel `repro/kernels/rglru_scan/kernel.py:51 rglru_scan_tiles`;
-the source says what bounds it and what its design does about that. The
-library is built from the repo's sources on first use (`kernels/_build.py`).
+the source says what bounds it and what its design does about that: for
+T > SEG, T is split across the warps of a CTA in windows of SEG steps a
+warp, their carries folded in shared memory (`rglru_scan_chunk_kernel`);
+T <= SEG, as in decode, takes a thread a channel
+(`rglru_scan_short_kernel`). One launch a call. The library is built from
+the repo's sources on first use (`kernels/_build.py`).
 """
 from __future__ import annotations
 
@@ -17,7 +21,10 @@ from repro_torch.kernels import _build
 
 SOURCE = "src/repro_torch/csrc/rglru_scan.cu"
 REPLACES = "src/repro/kernels/rglru_scan/kernel.py:51"
-KERNEL_NAME = "rglru_scan_kernel"       # the __global__ function, as traced
+KERNEL_NAME = "rglru_scan_"   # both __global__ names, as traced; one a call
+SEG = 8                       # RGLRU_SEG: steps a warp takes of each window
+WARPS = 8                     # RGLRU_WARPS: most warps of a CTA along T
+WINDOW = SEG * WARPS          # steps a CTA of WARPS warps takes at a time
 
 
 def _bind(lib: ctypes.CDLL) -> None:

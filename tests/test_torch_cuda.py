@@ -85,6 +85,27 @@ def test_kernel_matches_plain_version_on_card(cuda_device):
         K.rs_matmul(ref.cauchy_matrix(4, 2), x.cpu())
 
 
+@pytest.mark.parametrize("L", [4, 8, 12, 19, 16 * 64 + 3, 16 * 16384 + 3])
+def test_kernel_word_edges_on_card(cuda_device, L):
+    """The nibble-table kernel at whole-word and ragged widths (one word a
+    thread), at m = s = 11 (121 coefficients, the most it takes) and at
+    the ec(4,2) encode, from aligned rows and from views that start 1, 2
+    and 3 bytes into a word, against the plain version and the oracle."""
+    rng = np.random.default_rng(L)
+    for mat in (rng.integers(0, 256, (11, 11), np.uint8),
+                ref.cauchy_matrix(4, 2)):
+        s = mat.shape[1]
+        flat = torch.from_numpy(rng.integers(0, 256, 3 + s * L,
+                                             np.uint8)).to(cuda_device)
+        for start in (0, 1, 2, 3):
+            x = flat[start:start + s * L].view(s, L)
+            got = K.rs_matmul(mat, x)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref.gf_matmul_torch(mat, x)), (L, start)
+            np.testing.assert_array_equal(got.cpu().numpy(), ref.gf_matmul_np(
+                mat, x.cpu().numpy()))
+
+
 def test_ops_count_launches_by_leg(cuda_device):
     cells = np.random.default_rng(6).integers(0, 256, (4, 4096), np.uint8)
     before = ops.launches()
@@ -417,6 +438,27 @@ def test_rglru_kernel_matches_plain_version_on_card(
     gen = torch.Generator(device=cuda_device).manual_seed(B * T + R)
     a, b, h0 = _scan_inputs(gen, B, T, R, cuda_device)
     h0 = h0 if with_h0 else None
+    got = RK.rglru_scan(a, b, h0, reverse=reverse)
+    want = rref.rglru_scan_ref(a, b, h0, reverse=reverse)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("T", [RK.WINDOW - 1, RK.WINDOW + 1, 4096])
+def test_rglru_kernel_at_its_window_edges_on_card(cuda_device, T, reverse):
+    """rglru_scan to 1e-5 of rglru_scan_ref at T around one window of the
+    CTA's warps and at 4096 steps, with R = 2560 + 7 (B * R not a
+    multiple of the CTA's 32 channels: CTAs straddle the batch rows and
+    the last is part live) and h0; at 4096 a near 1 with b scaled by
+    sqrt(1 - a^2), as the model feeds the scan, so carries cross many
+    windows."""
+    gen = torch.Generator(device=cuda_device).manual_seed(T)
+    B, R = 2, 2560 + 7
+    a, b, h0 = _scan_inputs(gen, B, T, R, cuda_device)
+    if T == 4096:
+        a = 1 - 1e-3 * torch.rand(B, T, R, generator=gen, device=cuda_device)
+        b = b * torch.sqrt(1 - a * a)
     got = RK.rglru_scan(a, b, h0, reverse=reverse)
     want = rref.rglru_scan_ref(a, b, h0, reverse=reverse)
     torch.cuda.synchronize()
