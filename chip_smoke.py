@@ -56,7 +56,11 @@ result):
                elements, u8 views that start 1, 2 and 3 bytes into a word,
                key and nonce >= 2^32, a 1 GiB buffer, and the cipher's
                involution there), then times both and their plain versions
-               at a 1 MiB block and at 1 GiB beside their bounds;
+               at a 1 MiB block, at 1 GiB and at their floor (16 bytes,
+               one CTA) beside their bounds, every device operation of a
+               call (fails unless a 1 MiB call is one); sweeps fletcher
+               from 4 KiB to 16 MiB (fails unless every call is one device
+               operation); and times the parts of the wrappers' host call;
   4. ec        the erasure-coded storage path: a 1 GiB stream written to an
                ec(4,2) container on 8 targets in four fault domains with
                inline encryption, read back, one cell overwritten (delta
@@ -215,6 +219,36 @@ def kernel_device_ms(fn, iters: int, kernel: str, per_call: int = 1) -> float:
             return us / 1e3 / iters
         seen.append(n)
     raise AssertionError(f"profiler saw {seen} launches of {kernel} in "
+                         f"windows of {iters} calls")
+
+
+MEMSET = "Memset ("             # a memset's device record, as traced
+
+
+def device_ops_ms(fn, iters: int, names: tuple) -> tuple:
+    """(mean device time per call of `fn`, that time by operation, device
+    operations a call) over the device operations (kernels, memsets) whose
+    names hold one of `names`, from a torch.profiler trace of `iters`
+    calls. A window whose count is not a whole number of operations a call
+    lost a record and is traced again, up to TRACE_ATTEMPTS times."""
+    def calls() -> None:
+        for _ in range(iters):
+            fn()
+    fn()
+    seen = []
+    for _ in range(TRACE_ATTEMPTS):
+        events, _ = traced(calls)
+        by_op: dict = {}
+        n = 0
+        for ev in events:
+            if ev.device_time_total > 0 and any(s in ev.key for s in names):
+                by_op[ev.key] = (by_op.get(ev.key, 0.0)
+                                 + ev.device_time_total / 1e3 / iters)
+                n += ev.count
+        if n and n % iters == 0:
+            return sum(by_op.values()), by_op, n // iters
+        seen.append((n, sorted(by_op)))
+    raise AssertionError(f"profiler saw {seen} operations of {names} in "
                          f"windows of {iters} calls")
 
 
@@ -1227,9 +1261,11 @@ def integrity_phase(seed: int, size: int) -> dict:
 
     # times at a 1 MiB block (the 128 blocks taken in turn span 128 MiB,
     # more than the 50 MB L2, so each launch finds its block in HBM, as on
-    # the path) and at `size`: `ms` the kernel's device time (profiler),
-    # `call_ms` the wrapper's call (CUDA events, launch overhead included),
-    # `plain_ms` the plain version
+    # the path), at `size` and at the floor (16 bytes: one CTA): `ms` the
+    # device time of every operation of a kernel call (profiler;
+    # `ops_per_call` of them, memsets included), `call_ms` the wrapper's
+    # call (CUDA events, launch overhead included), `plain_ms` the plain
+    # version
     blocks = [big[i:i + INTEGRITY_BLOCK]
               for i in range(0, 128 * INTEGRITY_BLOCK, INTEGRITY_BLOCK)]
     key, nonce = CIPHER_KEYS[0]
@@ -1243,22 +1279,130 @@ def integrity_phase(seed: int, size: int) -> dict:
              flref.fletcher_checksum_torch, FLK.KERNEL_NAME)):
         legs = {}
         for leg, xs, iters, plain_iters in (
-                ("1MiB", blocks, 100, 20), (f"{size >> 20}MiB", [big], 10, 3)):
+                ("1MiB", blocks, 100, 20), (f"{size >> 20}MiB", [big], 10, 3),
+                ("floor", [big[:16]], 100, 20)):
             turn = itertools.cycle(xs)
-            ms = kernel_device_ms(lambda: kern(next(turn)), iters, kname)
+            ms, by_op, ops = device_ops_ms(lambda: kern(next(turn)), iters,
+                                           (kname, MEMSET))
             call_ms = cuda_ms(lambda: wrap(next(turn)), iters)
             plain_ms = cuda_ms(lambda: plain(next(turn)), plain_iters)
             bound = integrity_bound(name, xs[0].numel())
             legs[leg] = {"n_bytes": xs[0].numel(), "ms": ms,
+                         "ops_per_call": ops, "ms_by_op": by_op,
                          "call_ms": call_ms, "plain_ms": plain_ms, **bound}
-            print(f"{name} at {leg}: kernel {ms:.6f} ms on the device, "
-                  f"{call_ms:.6f} ms a call, plain {plain_ms:.6f} ms; bound "
+            print(f"{name} at {leg}: {ops} device operation(s) a call, "
+                  f"{ms:.6f} ms on the device ({by_op}), {call_ms:.6f} ms a "
+                  f"call, plain {plain_ms:.6f} ms; bound "
                   f"{bound['bound_ms']:.6f} ms by {bound['bound_by']}: "
                   f"{bound['bytes']} B / {HBM_BYTES_PER_S:.3g} B/s, "
                   f"{bound['int_ops']} integer ops / {INT32_OPS:.3g} op/s = "
                   f"{bound['ops_ms']:.6f} ms")
+        check(legs["1MiB"]["ops_per_call"] == 1,
+              f"{name} at 1 MiB is {legs['1MiB']['ops_per_call']} device "
+              "operations a call, not one")
         out[name] = {"max_abs_err": worst[name], "legs": legs}
+    out["fletcher"]["sweep"] = fletcher_sweep(big)
+    out["host_parts_us"] = host_call_parts(blocks[0])
     return out
+
+
+SWEEP_BYTES = (4 << 10, 64 << 10, 256 << 10, 1 << 20, 4 << 20, 16 << 20)
+HOST_LOOP = 1000                # calls a host part is timed over
+
+
+def fletcher_sweep(big) -> dict:
+    """fletcher's kernel call at every size of SWEEP_BYTES, bit-exact with
+    the plain version, then the device time of every operation of a call
+    beside the bound, blocks taken in turn from `big` (HBM-cold from 1 MiB
+    up, where the blocks in turn span more than the 50 MB L2; warm below).
+    A call is one kernel at every size: there is no second path and so no
+    threshold between paths."""
+    import torch
+    from repro_torch.kernels.fletcher import kernel as FLK
+    from repro_torch.kernels.fletcher import ref as flref
+    rows = {}
+    for n in SWEEP_BYTES:
+        xs = [big[i * n:(i + 1) * n]
+              for i in range(min(128, big.numel() // n))]
+        check(torch.equal(FLK.fletcher(xs[0]).view(torch.int32),
+                          flref.fletcher_checksum_torch(xs[0]).view(
+                              torch.int32)),
+              f"fletcher != plain version at {n} B")
+        turn = itertools.cycle(xs)
+        ms, _, ops = device_ops_ms(lambda: FLK.fletcher(next(turn)), 100,
+                                   (FLK.KERNEL_NAME, MEMSET))
+        bound_ms = integrity_bound("fletcher", n)["bound_ms"]
+        rows[str(n)] = {"ms": ms, "ops_per_call": ops, "bound_ms": bound_ms}
+        print(f"fletcher at {n} B: {ops} device operation(s) a call, "
+              f"{ms:.6f} ms, bound {bound_ms:.6f} ms")
+        check(ops == 1, f"fletcher at {n} B is {ops} device operations")
+    return rows
+
+
+def host_call_parts(x) -> dict:
+    """The host time of each part of a wrapper's call on `x` (a 1 MiB u8
+    block on the card), us a call, each part alone over HOST_LOOP calls,
+    beside the whole call's host time; and the parts an earlier wrapper
+    ran that these no longer run on a tensor already on the current card
+    (`old_*`)."""
+    import threading
+    import torch
+    from repro_torch.kernels import _launch
+    from repro_torch.kernels.fletcher import kernel as FLK
+    from repro_torch.kernels.fletcher import ops as flops
+    from repro_torch.kernels.fletcher import ref as flref
+    from repro_torch.kernels.stream_cipher import kernel as SCK
+    from repro_torch.kernels.stream_cipher import ops as scops
+    dev, n = x.device, x.numel()
+    f_lib, c_lib = FLK._lib(), SCK._lib()
+    sums, ciphered = torch.empty(2, dtype=torch.uint32, device=dev), \
+        torch.empty_like(x)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    lock, counts = threading.Lock(), {"checksum": 0}
+
+    def count() -> None:
+        with lock:
+            counts["checksum"] += 1
+
+    def device_context() -> None:
+        with torch.cuda.device(dev):
+            pass
+    parts = {
+        "as_tensor": lambda: scops.as_tensor(x, None),
+        "as_bytes": lambda: flref.as_bytes(x),
+        "checks": lambda: _launch.check_bytes(x, "fletcher"),
+        "zeroed pair": lambda: FLK._zeroed_pair(dev.index, stream),
+        "torch.empty_like": lambda: torch.empty_like(x),
+        "current_device": torch.cuda.current_device,
+        "raw_stream": lambda: torch._C._cuda_getCurrentRawStream(dev.index),
+        "ctypes fletcher": lambda: f_lib.fletcher(
+            x.data_ptr(), n, sums.data_ptr(), stream),
+        "ctypes stream_cipher": lambda: c_lib.stream_cipher(
+            x.data_ptr(), ciphered.data_ptr(), n, 1, 2, stream),
+        "launch count": count,
+        "old_empty(2)": lambda: torch.empty(2, dtype=torch.uint32,
+                                            device=dev),
+        "old_to": lambda: x.to(dev),
+        "old_reshape": lambda: x.reshape(-1),
+        "old_contiguous": x.contiguous,
+        "old_device_context": device_context,
+        "old_current_stream": lambda: torch.cuda.current_stream(
+            dev).cuda_stream,
+        "fletcher_checksum": lambda: flops.fletcher_checksum(x),
+        "stream_cipher": lambda: scops.stream_cipher(x, 1, 2),
+    }
+    us = {}
+    for part, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_LOOP):
+            fn()
+        us[part] = (time.perf_counter() - t0) / HOST_LOOP * 1e6
+        torch.cuda.synchronize()
+    print("host parts of a 1 MiB call (us a call, each alone over "
+          f"{HOST_LOOP} calls):", json.dumps(us))
+    return us
 
 
 def integrity_stream_phase(placed: list, expect, seed: int) -> dict:
@@ -2241,7 +2385,13 @@ def main(argv=None) -> int:
         "bound_ms": integrity[name]["legs"]["1MiB"]["bound_ms"],
         "bound_by": integrity[name]["legs"]["1MiB"]["bound_by"],
         "library_ms": None, "shape": {"n_bytes": INTEGRITY_BLOCK},
-        "legs": integrity[name]["legs"]}
+        "ops_per_call": integrity[name]["legs"]["1MiB"]["ops_per_call"],
+        "floor_ms": integrity[name]["legs"]["floor"]["ms"],
+        "floor_call_ms": integrity[name]["legs"]["floor"]["call_ms"],
+        "legs": integrity[name]["legs"],
+        "host_parts_us": integrity["host_parts_us"],
+        **({"sweep": integrity["fletcher"]["sweep"]}
+           if name == "fletcher" else {})}
         for name, kern in (("stream_cipher", SCK), ("fletcher", FLK))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

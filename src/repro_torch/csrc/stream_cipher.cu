@@ -23,7 +23,11 @@
 // Bound on an H100 SXM: memory. Each byte is read once and written once,
 // 2 * n_bytes over 3.35 TB/s: 0.641 ms for 1 GiB, 0.626 us for 1 MiB. The
 // keystream is some 12 integer operations a word, 3.2 G for 1 GiB, about
-// a fifth of that time at the card's integer rate.
+// a fifth of that time at the card's integer rate. On an H100 the 1 GiB
+// pass runs at the rate of its loads and stores alone, and a 1 MiB extent
+// at a launch's floor plus one load-and-store round trip; a grid of one
+// wave with 8 loads in flight a thread and streaming stores was no faster
+// (scripts/integrity_ablation.py).
 //
 // When both pointers are 16-byte aligned the body is uint4 loads and
 // stores and the n_bytes % 16 tail one byte a thread; otherwise (a u8 view

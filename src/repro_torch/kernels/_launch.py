@@ -1,0 +1,37 @@
+"""What the storage kernels' wrappers (`stream_cipher`, `fletcher`) share
+around a launch: the check of their input and the C call on the input's
+card, on PyTorch's current stream there.
+
+A 1 MiB extent takes the kernels some 2 us on an H100, so the host call
+is most of a checksum's cost; these do only what the launch needs. The
+card is entered (`torch.cuda.device`) only when the tensor is not on the
+current one, and the stream is read as the raw pointer PyTorch's own
+generated code reads (`torch._C._cuda_getCurrentRawStream`), without
+making a `torch.cuda.Stream`.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+BYTE_DTYPES = (torch.uint8, torch.uint32)
+
+
+def check_bytes(x: torch.Tensor, name: str) -> None:
+    """Raises unless x is a contiguous, non-empty uint8 or uint32 CUDA
+    tensor."""
+    if (x.dtype not in BYTE_DTYPES or not x.is_cuda
+            or not x.is_contiguous() or x.numel() == 0):
+        raise ValueError(f"{name} takes a contiguous, non-empty uint8 or "
+                         f"uint32 CUDA tensor, got {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}")
+
+
+def call_on(index: int, fn: Callable, *args):
+    """fn(*args, stream) on card `index`, `stream` being PyTorch's current
+    stream there (as an int); returns what fn returns."""
+    if index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))

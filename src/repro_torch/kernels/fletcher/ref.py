@@ -75,7 +75,7 @@ def fletcher_torch(words: torch.Tensor) -> torch.Tensor:
 def as_bytes(x: torch.Tensor) -> torch.Tensor:
     """The bytes of any tensor in memory order, as a flat u8 tensor (a
     view where `x` is contiguous)."""
-    flat = x.reshape(-1)
+    flat = x if x.dim() == 1 else x.reshape(-1)
     if flat.dtype == torch.uint8:
         return flat
     if flat.numel() == 0:

@@ -14,7 +14,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _launch
 from repro_torch.kernels.stream_cipher.ref import MASK32
 
 SOURCE = "src/repro_torch/csrc/stream_cipher.cu"
@@ -44,19 +44,11 @@ def cipher(x: torch.Tensor, key: int, nonce: int) -> torch.Tensor:
     last word reads as zero-padded. Key and nonce are taken mod 2^32. Any
     start address works (a byte view need not be 16-byte aligned). Raises
     on what the kernel does not take and if the launch fails."""
-    if (x.device.type != "cuda" or x.dtype not in (torch.uint8, torch.uint32)
-            or not x.is_contiguous() or x.numel() == 0):
-        raise ValueError("stream_cipher takes a contiguous, non-empty uint8 "
-                         f"or uint32 CUDA tensor, got {x.dtype} "
-                         f"{tuple(x.shape)} on {x.device}")
+    _launch.check_bytes(x, "stream_cipher")
     out = torch.empty_like(x)
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.stream_cipher(x.data_ptr(), out.data_ptr(),
-                                x.numel() * x.element_size(),
-                                int(key) & MASK32, int(nonce) & MASK32,
-                                stream)
+    err = _launch.call_on(x.device.index, _lib().stream_cipher, x.data_ptr(),
+                          out.data_ptr(), x.numel() * x.element_size(),
+                          int(key) & MASK32, int(nonce) & MASK32)
     if err != 0:
         raise RuntimeError(f"stream_cipher launch failed: CUDA error {err}")
     return out

@@ -26,7 +26,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.device import DeviceLike, device_of
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.stream_cipher import kernel as K
 from repro_torch.kernels.stream_cipher import ref
 
@@ -49,9 +49,9 @@ def launches() -> Dict[str, int]:
 def as_tensor(x, device: DeviceLike) -> torch.Tensor:
     """A tensor on the op's device: a tensor stays where it lies unless
     `device` names another; a numpy array goes to `device`."""
-    dev = device_of(x, device)
     if isinstance(x, torch.Tensor):
-        return x.to(dev)
+        return x if device is None else x.to(resolve_device(device))
+    dev = resolve_device(device)
     arr = np.ascontiguousarray(x)
     if not arr.flags.writeable:
         arr = arr.copy()
@@ -71,7 +71,7 @@ def stream_cipher(x, key: int, nonce: int, *, block: int = DEFAULT_BLOCK,
     x = as_tensor(x, device)
     if x.dtype not in (torch.uint8, torch.uint32):
         raise TypeError(f"stream_cipher takes uint8 or uint32, got {x.dtype}")
-    flat = x.reshape(-1)
+    flat = x if x.dim() == 1 else x.reshape(-1)
     if flat.numel() == 0:
         return flat.clone()
     if flat.device.type == "cpu":

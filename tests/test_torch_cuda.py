@@ -738,3 +738,118 @@ def test_storage_kernels_refuse_what_they_do_not_take(cuda_device):
             fn(x[:0])
     with pytest.raises(TypeError):
         scops.stream_cipher(x.float(), 1, 2)
+
+
+def _device_ops(fn, expect: int) -> list:
+    """The names of the device operations (kernels, memsets, copies) of
+    one call of `fn`, from torch.profiler, which loses a record now and
+    then: a window that did not record `expect` of them is traced again,
+    up to 5 times."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(5):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = [ev.name for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+        if len(ops) == expect:
+            break
+    return ops
+
+
+FLETCHER_FULL = 132 * 8 * 256 * 2 * 16   # where fletcher's grid stops
+
+
+@pytest.mark.parametrize("start", [0, 1, 2, 3, 4])
+def test_fletcher_kernel_at_its_grid_edges_on_card(cuda_device, start):
+    """Bit-exact with the plain version at 1 MiB and where the grid stops
+    growing (grid-stride beyond), at 16-byte-aligned and misaligned
+    starts."""
+    buf = torch.randint(0, 256, (3 * FLETCHER_FULL + 64,), dtype=torch.uint8,
+                        device=cuda_device)
+    for n in (4, 16, 1 << 20, (1 << 20) + 3, FLETCHER_FULL - 4,
+              FLETCHER_FULL, FLETCHER_FULL + 4, 3 * FLETCHER_FULL + 13):
+        x = buf[start:start + n]
+        got = flops.fletcher_checksum(x)
+        torch.cuda.synchronize()
+        assert _same_bits(got, flref.fletcher_checksum_torch(x)), (n, start)
+
+
+def test_fletcher_call_is_one_device_operation(cuda_device):
+    """A call is the kernel alone at every size: no memset. On a new
+    stream the first call zeroes a pool of POOL_PAIRS output pairs, and
+    the next POOL_PAIRS - 1 calls make no other operation."""
+    x = torch.randint(0, 256, (64 << 20,), dtype=torch.uint8,
+                      device=cuda_device)
+    FLK.fletcher(x[:1 << 20])                            # built, pool made
+    for n in (16, 1 << 20, 5 << 20, 64 << 20):
+        ops = _device_ops(lambda: FLK.fletcher(x[:n]), 1)
+        assert ops == [ops[0]] and FLK.KERNEL_NAME in ops[0], ops
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        ops = _device_ops(lambda: [FLK.fletcher(x[:4096])
+                                   for _ in range(FLK.POOL_PAIRS)],
+                          FLK.POOL_PAIRS + 1)
+    kernels = [op for op in ops if FLK.KERNEL_NAME in op]
+    assert len(kernels) == FLK.POOL_PAIRS and len(ops) == len(kernels) + 1
+    assert not any("Memset" in op for op in ops), set(ops)
+
+
+def test_fletcher_on_two_streams_at_once(cuda_device):
+    """Checksums launched on two streams in turn, each stream's results
+    from its own pool, give every block's own sums, and no result is
+    overwritten by a later call."""
+    data = torch.randint(0, 256, (64 << 20,), dtype=torch.uint8,
+                         device=cuda_device)
+    blocks = [data[i << 20:(i + 1) << 20] for i in range(48)] + [
+        data[:FLETCHER_FULL + 4], data[1:FLETCHER_FULL + 5],
+        data[3:(1 << 20) + 3]]
+    want = [flref.fletcher_checksum_torch(b) for b in blocks]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    got = []
+    for i, b in enumerate(blocks):
+        with torch.cuda.stream(streams[i % 2]):
+            got.append(flops.fletcher_checksum(b))
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert _same_bits(g, w), i
+
+
+def test_stream_cipher_at_1mib_and_past_one_wave_on_card(cuda_device):
+    """Bit-exact with the plain version at the engine's 1 MiB extent and
+    at streams past the grid's full size (132 x 16 CTAs x 256 threads x 4
+    loads x 16 B = 34.6 MB, grid-stride beyond), aligned, ragged and 3
+    bytes into a word."""
+    data = torch.randint(0, 256, ((96 << 20) + 32,), dtype=torch.uint8,
+                         device=cuda_device)
+    for x in (data[:1 << 20], data[:96 << 20], data[:(96 << 20) + 13],
+              data[3:(64 << 20) + 3]):
+        got = scops.stream_cipher(x, 0xC0FFEE, 42)
+        want = scref.stream_cipher_torch(x, 0xC0FFEE, 42)
+        torch.cuda.synchronize()
+        assert _same_bits(got, want), x.numel()
+
+
+def test_fletcher_from_many_threads_at_once(cuda_device):
+    """Threads that share a stream take distinct pairs of its pool: with
+    more threads than cores and a short switch interval, every result is
+    its own block's sums and no two results share memory."""
+    data = torch.randint(0, 256, (16 << 20,), dtype=torch.uint8,
+                         device=cuda_device)
+    blocks = [data[i << 16:(i + 1) << 16] for i in range(256)]
+    want = [flref.fletcher_checksum_torch(b) for b in blocks]
+    torch.cuda.synchronize()
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with ThreadPoolExecutor(16) as ex:
+            got = list(ex.map(flops.fletcher_checksum, blocks * 8,
+                              timeout=120))
+    finally:
+        sys.setswitchinterval(interval)
+    torch.cuda.synchronize()
+    assert len({g.data_ptr() for g in got}) == len(got)
+    for i, g in enumerate(got):
+        assert _same_bits(g, want[i % len(blocks)]), i
