@@ -25,12 +25,14 @@ result):
                version on the card, in bfloat16 and float32 (MHA, GQA,
                MQA, window, softcap, non-causal, ragged, head_dim 128 and
                256, padded keys, T and S below and around the bf16
-               tiles, a group of 32, the serve shape), then times the
-               kernel, its plain version and PyTorch's
-               scaled_dot_product_attention (the
+               tiles, a group of 32, the serve shape, head_dim 128 in
+               groups of 6 and 8), then times the kernel, its plain
+               version and PyTorch's scaled_dot_product_attention (the
                library yardstick, used nowhere in the port) at the serve
-               shape; holds flash_attention_bwd's dq, dk and dv against
-               its plain version in both types (GQA, MQA, window, ragged,
+               shape and at dbrx's and llama-3.2-vision's prefill shapes
+               (head_dim 128, 48 and 64 heads over 8); holds
+               flash_attention_bwd's dq, dk and dv against its plain
+               version in both types (GQA, MQA, window, ragged,
                head_dim 128 and 256, padded keys, the tile edges, a
                group of 32, the train and serve shapes), then
                times it, its plain version and the backward of
@@ -114,7 +116,41 @@ result):
                prefill and four decode steps are traced; then
                launch/serve.py main runs the tiny config through its
                command line;
-  9. train     the training path at full width, as launch/train.py main
+  9. moe       the serving path of the moe family at full width, the
+               depth cut to one card, attn_impl="flash", float32 params
+               computing in bf16, the granite phase's traffic (8 prompts
+               of 1024 tokens from a dpu/RDMA store, waves of 4, up to 32
+               new tokens each): dbrx-132b (4 of 40 layers; 16 experts
+               top-4, GQA 48 over 8 heads of 128) and deepseek-v2-236b (3
+               of 60; MLA, 2 shared + 160 routed experts top-6). dbrx's
+               prefill must launch flash_attention_fwd once a layer a wave
+               (head_dim 128, groups of 6), deepseek-v2's MLA never; every
+               flash call of a wave's prefill holds against exact (float64)
+               attention on its own inputs (bf16, 2e-2); the memory a
+               prefill wave takes above the params; each model in float32
+               through its first layer (the dispatch in float32 too) holds
+               against the plain path (logits to 1e-3, every first greedy
+               token equal); one dbrx wave with the float8_e4m3fn dispatch
+               (finite logits, loss within 10% of the bf16 dispatch) and
+               the cast's NaN-above-464 rule on the card bit for bit the
+               CPU's; one prefill and four decode steps traced; then
+               launch/serve.py main on their tiny configs;
+ 10. vlm, encdec  llama-3.2-vision-90b (2 of 20 super-blocks: 8 self
+               layers with H=64, KH=8, head_dim 128, and 2 gated cross
+               layers; seeded nonzero gates) with 4,096 x 1,280 patch
+               embeddings a request, and whisper-tiny whole (1,500 x 384
+               frames a request, 384-token decoder prompts), both made on
+               the card from the seed, through ModelAPI.prefill and decode
+               in BatchedEngine's greedy waves (launch/serve.py serves
+               neither family, as the reference's does not). The VLM's
+               flash launches must equal 8 a wave, each held against exact
+               attention (2e-2), and in float32 through its first self and
+               cross layers it holds against the plain path at 1e-3 (its
+               first super-block printed); whisper launches no kernel, and
+               in float32 through its first encoder and decoder layers the
+               card holds against the port's CPU run at 1e-3 (whole,
+               printed); both traced;
+ 11. train     the training path at full width, as launch/train.py main
                walks it: dense-100m (12 layers, d_model 768, vocab 32000)
                with attn_impl="flash", float32 params computing in bf16
                from a seed, a synthetic corpus written to a dpu-mode RDMA
@@ -134,9 +170,10 @@ result):
 
 Each kernel's launch counts are zeroed just before the path that drives it
 (rs_matmul: the ec phase; stream_cipher and fletcher: the step on the
-placed stream; flash_attention_fwd: the serve phase; rglru_scan and wkv6:
-their serve phases; flash_attention_bwd: the train phase) and read just
-after it. The line before the last is a JSON object of the kernels
+placed stream; flash_attention_fwd: each of the granite, dbrx and VLM
+serve phases, and its launches are their sum; rglru_scan and wkv6: their
+serve phases; flash_attention_bwd: the train phase) and read just after
+it. The line before the last is a JSON object of the kernels
 (launches, error, times, bound); the last line is the result object.
 """
 from __future__ import annotations
@@ -668,8 +705,16 @@ FLASH_CASES = [  # B, T, S, H, KH, D, causal, window, softcap, seq_k
     (1, 200, 200, 2, 1, 256, True, None, None, None),     # head_dim 256 ragged
     (1, 100, 100, 32, 1, 64, True, None, None, None),     # MQA, a group of 32
     (4, 1024, 1024, 32, 8, 64, True, None, None, None),   # the serve shape
+    (2, 200, 200, 48, 8, 128, True, None, None, None),    # groups of 6 and 8
+    (2, 200, 200, 64, 8, 128, True, None, None, None),    # at head_dim 128
+    (4, 1024, 1024, 48, 8, 128, True, None, None, None),  # dbrx's prefill
+    (4, 1024, 1024, 64, 8, 128, True, None, None, None),  # the VLM's
 ]
 SERVE_SHAPE = (4, 1024, 32, 8, 64)                  # B, T=S, H, KH, D
+D128_SHAPES = {  # arch -> its prefill wave's attention: B, T=S, H, KH, D
+    "dbrx-132b": (4, 1024, 48, 8, 128),
+    "llama-3.2-vision-90b": (4, 1024, 64, 8, 128),
+}
 # tests/test_kernels.py:56, the reference's own tolerances
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 
@@ -690,12 +735,12 @@ def flash_bound(B: int, T: int, H: int, KH: int, D: int, elem: int) -> dict:
 
 def flash_phase(seed: int) -> dict:
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as K
     from repro_torch.kernels.flash_attention import ops, ref
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     worst = {"bfloat16": 0.0, "float32": 0.0}
+    at_prefill = {}      # out's error at D128_SHAPES, by dtype and H
     n_checks = 0
     for dname in ("bfloat16", "float32"):
         dt, tol = getattr(torch, dname), FLASH_TOL[dname]
@@ -723,12 +768,33 @@ def flash_phase(seed: int) -> dict:
                 check(ok, f"flash {name} off by {err} (tol {tol}): {what}")
                 worst[dname] = max(worst[dname], err)
             n_checks += 1
+            if (B, T, H, KH, D) in D128_SHAPES.values() and T == S:
+                at_prefill[f"{dname} H={H}"] = in_tolerance(out, want, tol)[0]
     print(f"flash_attention_fwd within tolerance of its plain version in "
-          f"{n_checks} checks; max abs error {worst}")
+          f"{n_checks} checks; max abs error {worst}; at dbrx's and the "
+          f"VLM's prefill shapes {at_prefill}")
 
-    # times at the serve shape: `ms` the kernel's device time (profiler),
-    # `call_ms` the wrapper's call (CUDA events, launch overhead included)
-    B, T, H, KH, D = SERVE_SHAPE
+    # times at the serve shape, and at head_dim 128 at the prefill shapes
+    # of dbrx and llama-3.2-vision
+    times = _flash_times(SERVE_SHAPE, gen)
+    d128 = {arch: _flash_times(shape, gen)
+            for arch, shape in D128_SHAPES.items()}
+    return {"max_abs_err": max(worst.values()), "max_abs_err_by_dtype": worst,
+            "max_abs_err_at_d128_prefill": at_prefill, **times, "d128": d128}
+
+
+def _flash_times(shape: tuple, gen) -> dict:
+    """At (B, T=S, H, KH, D), bf16, causal: `ms` the kernel's device time
+    (profiler), `call_ms` the wrapper's call (CUDA events, launch overhead
+    included), the plain version's time and PyTorch's
+    scaled_dot_product_attention's (the library yardstick, used nowhere in
+    the port), beside the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    B, T, H, KH, D = shape
     q = torch.randn(B, T, H, D, generator=gen, device="cuda").bfloat16()
     k = torch.randn(B, T, KH, D, generator=gen, device="cuda").bfloat16()
     v = torch.randn(B, T, KH, D, generator=gen, device="cuda").bfloat16()
@@ -743,18 +809,18 @@ def flash_phase(seed: int) -> dict:
     lib_out = F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
     err, ok = in_tolerance(ops.flash_attention(q, k, v), lib_out, 2e-2)
-    check(ok, f"flash differs from the library call by {err}")
+    check(ok, f"flash differs from the library call by {err} at {shape}")
     bound = flash_bound(B, T, H, KH, D, q.element_size())
-    print(f"flash_attention_fwd at the serve shape (B={B}, T=S={T}, H={H}, "
-          f"KH={KH}, D={D}, bf16, causal): kernel {ms:.6f} ms on the device, "
+    print(f"flash_attention_fwd at (B={B}, T=S={T}, H={H}, KH={KH}, D={D}, "
+          f"bf16, causal): kernel {ms:.6f} ms on the device, "
           f"{call_ms:.6f} ms a call, plain {plain_ms:.6f} ms, "
           f"scaled_dot_product_attention {library_ms:.6f} ms; bound "
           f"{bound['bound_ms']:.6f} ms by {bound['bound_by']}: "
           f"{bound['flops']} FLOP / {BF16_FLOPS:.3g} FLOP/s = "
           f"{bound['ops_ms']:.6f} ms, {bound['bytes']} B / "
           f"{HBM_BYTES_PER_S:.3g} B/s = {bound['bytes_ms']:.6f} ms")
-    return {"max_abs_err": max(worst.values()), "max_abs_err_by_dtype": worst,
-            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+    return {"shape": dict(zip(("B", "T", "H", "KH", "D"), shape)), "ms": ms,
+            "call_ms": call_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, **bound}
 
 
@@ -1494,27 +1560,33 @@ def first_layers(tree: dict, n: int) -> dict:
 
 
 def _serve_from_store(api, params, mctx, vocab: int, seed: int, label: str,
-                      reset, counts) -> tuple:
-    """The serve phases' traffic: SERVE_REQUESTS prompts of SERVE_PLEN
-    tokens written to a dpu-mode RDMA store and read back, then served in
-    waves of SERVE_BATCH, up to SERVE_MAX_NEW new tokens each, through
-    BatchedEngine after a warm-up wave. `reset()` sets the kernel counts to
-    0 just before the timed run and `counts()` reads them (name ->
-    launches) just after. Returns (requests, engine, stats, launches)."""
+                      reset, counts, plen: int = SERVE_PLEN,
+                      engine=None) -> tuple:
+    """The serve phases' traffic: SERVE_REQUESTS prompts of `plen` tokens
+    written to a dpu-mode RDMA store and read back, then served in waves of
+    SERVE_BATCH, up to SERVE_MAX_NEW new tokens each, through BatchedEngine
+    (or `engine(max_seq)`, an engine like it) after a warm-up wave.
+    `reset()` sets the kernel counts to 0 just before the timed run and
+    `counts()` reads them (name -> launches) just after. Returns (requests,
+    engine, stats, launches)."""
     import torch
     from repro_torch.core import ROS2Client
     from repro_torch.launch.serve import (BatchedEngine, Request,
                                           read_prompt, write_prompts)
 
+    if engine is None:
+        def engine(max_seq):
+            return BatchedEngine(api, params, mctx, SERVE_BATCH, plen,
+                                 max_seq)
     client = ROS2Client(mode="dpu", transport="rdma", scrub_interval_s=None)
     try:
         t0 = time.perf_counter()
-        write_prompts(client, SERVE_REQUESTS, SERVE_PLEN, vocab, seed)
+        write_prompts(client, SERVE_REQUESTS, plen, vocab, seed)
         rng = np.random.default_rng(seed)         # write_prompts' draws
-        written = [rng.integers(0, vocab, SERVE_PLEN, dtype=np.int32)
+        written = [rng.integers(0, vocab, plen, dtype=np.int32)
                    for _ in range(SERVE_REQUESTS)]
         rng = np.random.default_rng(seed)         # launch/serve.py main's draw
-        reqs = [Request(i, read_prompt(client, i, SERVE_PLEN),
+        reqs = [Request(i, read_prompt(client, i, plen),
                         int(rng.integers(SERVE_MAX_NEW // 2,
                                          SERVE_MAX_NEW + 1)))
                 for i in range(SERVE_REQUESTS)]
@@ -1526,11 +1598,11 @@ def _serve_from_store(api, params, mctx, vocab: int, seed: int, label: str,
     finally:
         client.close()
 
-    max_seq = SERVE_PLEN + SERVE_MAX_NEW + 8
-    eng = BatchedEngine(api, params, mctx, SERVE_BATCH, SERVE_PLEN, max_seq)
+    max_seq = plen + SERVE_MAX_NEW + 8
+    eng = engine(max_seq)
     # warm-up wave outside the counted run (cuBLAS handles, allocator)
     eng.run_wave([Request(-1, reqs[0].prompt, 2)])
-    eng = BatchedEngine(api, params, mctx, SERVE_BATCH, SERVE_PLEN, max_seq)
+    eng = engine(max_seq)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset()
@@ -1547,20 +1619,201 @@ def _serve_from_store(api, params, mctx, vocab: int, seed: int, label: str,
           "a token outside the vocabulary")
     occ = eng.active_slot_steps / max(eng.slot_steps, 1)
     stats = {"requests": len(reqs), "waves": waves,
-             "prompt_tokens": SERVE_PLEN * len(reqs),
+             "prompt_tokens": plen * len(reqs),
              "new_tokens": new_tokens, "prompts_s": prompts_s,
              "wall_s": wall, "tokens_per_s": new_tokens / wall,
              "slot_occupancy": occ, "prefill_s": eng.prefill_s,
              "decode_s": eng.decode_s, "decode_steps": eng.steps,
              "dpu_ops": dpu_ops,
              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    print(f"[{label}] {len(reqs)} requests of {SERVE_PLEN} prompt tokens in "
+    print(f"[{label}] {len(reqs)} requests of {plen} prompt tokens in "
           f"{waves} waves: {new_tokens} new tokens, "
           f"{new_tokens / wall:.3f} tok/s, slot occupancy {100 * occ:.1f}%, "
           f"prefill {eng.prefill_s:.3f} s, decode {eng.decode_s:.3f} s over "
           f"{eng.steps} steps, " + ", ".join(
               f"{k} launches {v}" for k, v in launched.items()))
     return reqs, eng, stats, launched
+
+
+def _recorded_flash(fn) -> tuple:
+    """(fn(), every flash_attention call it made as (q, k, v, kw, out))."""
+    from repro_torch.kernels.flash_attention import ops
+    calls = []
+    kernel_path = ops.flash_attention
+
+    def recording(q, k, v, **kw):
+        out = kernel_path(q, k, v, **kw)
+        calls.append((q, k, v, kw, out))
+        return out
+
+    ops.flash_attention = recording          # layers.attention looks it up
+    try:
+        return fn(), calls
+    finally:
+        ops.flash_attention = kernel_path
+
+
+def attention_f64(q, k, v, scale: float):
+    """Causal GQA attention computed in float64 from q, k and v (B, T, H,
+    D) as they are, a batch row at a time: the exact answer on the inputs
+    a flash call was given."""
+    import torch
+    B, T, H, D = q.shape
+    KH = k.shape[2]
+    out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
+    hidden = ~torch.ones(T, T, dtype=torch.bool, device=q.device).tril()
+    for b in range(B):
+        s = torch.einsum("tkgd,skd->kgts",
+                         q[b].double().reshape(T, KH, H // KH, D),
+                         k[b].double()) * scale
+        p = torch.softmax(s.masked_fill(hidden, float("-inf")), dim=-1)
+        out[b] = torch.einsum("kgts,skd->tkgd", p,
+                              v[b].double()).reshape(T, H, D)
+    return out
+
+
+def _flash_calls_err(calls: list, tol: float, label: str) -> dict:
+    """Every recorded (causal, unwindowed) flash call of a prefill held
+    against exact attention on its own inputs (`attention_f64`) at `tol`;
+    the kernel against the plain version at these shapes is flash_phase's
+    (FLASH_CASES, random inputs). Not against the plain version here: at
+    D = 128 the random-weight models' scaled scores spread to a std of
+    313-363 and |v| to 177, where the plain version's float32 scores put
+    it up to 0.036 off exact, more than this tolerance where the answer
+    is near 0: rounded to bf16 it reaches 1.14 times the tolerance off
+    exact, and the kernel falls outside the tolerance of it at one of the
+    VLM's calls, before that rounding and after, while the kernel stays
+    within 0.31 of the tolerance off exact at every call
+    (scripts/flash_d128_accuracy_witness.py). The kernel's distance to
+    the plain version, before and after its bf16 rounding, is printed."""
+    from repro_torch.kernels.flash_attention import ref as fref
+    worst = {"exact": 0.0, "plain": 0.0, "rounded plain": 0.0}
+    for i, (q, k, v, kw, out) in enumerate(calls):
+        check(kw["causal"] and kw["window"] is None and kw["softcap"] is None,
+              f"{label}: flash call {i} is not plain causal attention")
+        scale = kw["scale"] or q.shape[-1] ** -0.5
+        err, ok = in_tolerance(out, attention_f64(q, k, v, scale), tol)
+        check(ok, f"{label}: flash call {i} off exact attention by {err} "
+              "on the path's inputs")
+        worst["exact"] = max(worst["exact"], err)
+        for name, plain in (
+                ("plain", lambda: fref.attention_ref(
+                    q.float(), k.float(), v.float(), scale=scale)),
+                ("rounded plain", lambda: fref.attention_ref(
+                    q, k, v, scale=scale))):
+            worst[name] = max(worst[name], in_tolerance(out, plain(), tol)[0])
+    print(f"{label}: every one of {len(calls)} flash calls of a prefill "
+          f"wave within {tol} of exact (float64) attention on its own "
+          f"inputs: max abs error {worst['exact']:.6f}; against the plain "
+          f"version {worst['plain']:.6f} (float32), "
+          f"{worst['rounded plain']:.6f} (rounded to bf16)")
+    return {"flash_call_max_abs_err": worst["exact"],
+            "flash_call_vs_plain_max_abs_err": worst["plain"],
+            "flash_call_vs_rounded_plain_max_abs_err":
+                worst["rounded plain"]}
+
+
+def _f32_paths(cut, cut_params, inputs, mctx) -> tuple:
+    """`cut` in float32 through "flash" and "jnp" on the same inputs:
+    (max abs difference of the last-token logits, whether it is within
+    1e-3, rows whose first greedy token agrees, logit scale)."""
+    import torch
+    from repro_torch.models.api import ModelAPI
+    with torch.inference_mode():
+        f32 = [ModelAPI(cut.replace(attn_impl=impl)).prefill(
+            cut_params, inputs, mctx)[0] for impl in ("flash", "jnp")]
+    diff, ok = in_tolerance(f32[0], f32[1], 1e-3)
+    agree = int((f32[0].argmax(-1) == f32[1].argmax(-1)).sum())
+    return diff, ok, agree, float(f32[1].abs().max())
+
+
+def _paths_agree(api, params, cut, cut_params, inputs, mctx,
+                 label: str) -> dict:
+    """The bf16 model at its depth through "flash" and "jnp", then `cut`
+    in float32 through both: last-token logits within 1e-3 and every
+    first greedy token the same. The bf16 comparison is printed, not
+    held: the reference's fan-in rule (over w_q's head axis) makes the
+    random-weight models chaotic at these widths, so the two paths' bf16
+    roundings drift apart over the layers, as the reference's own flash
+    and plain paths do on the CPU (scripts/attention_paths_witness.py);
+    the per-call kernel checks and the shallow float32 check are what
+    hold the path."""
+    import torch
+    from repro_torch.models.api import ModelAPI
+    with torch.inference_mode():
+        fl = api.prefill(params, inputs, mctx)[0].float()
+        pl = ModelAPI(api.cfg.replace(attn_impl="jnp")).prefill(
+            params, inputs, mctx)[0].float()
+        check(bool(torch.isfinite(fl).all()), f"{label}: logits not finite")
+        diff = float((fl - pl).abs().max())
+        logit_scale = float(pl.abs().max())
+        agree = int((fl.argmax(-1) == pl.argmax(-1)).sum())
+        print(f"{label}: prefill logits, flash vs plain path (bf16, "
+              f"{api.cfg.n_layers} layers): max abs difference {diff:.6f} at "
+              f"logit scale {logit_scale:.6f}; first greedy token agrees in "
+              f"{agree} of {len(fl)} rows")
+        rows = len(fl)
+        del fl, pl
+    f32_diff, ok, f32_agree, scale = _f32_paths(cut, cut_params, inputs,
+                                                mctx)
+    print(f"{label}: prefill logits, flash vs plain path (float32, "
+          f"{cut.n_layers} layers, full width): max abs difference "
+          f"{f32_diff:.3e} at logit scale {scale:.6f}; first greedy token "
+          f"agrees in {f32_agree} of {rows} rows")
+    check(ok, f"{label}: float32 prefill logits of the two paths differ by "
+          f"{f32_diff}")
+    check(f32_agree == rows, f"{label}: float32 first greedy tokens "
+          f"differ: {f32_agree} of {rows} rows agree")
+    return {"prefill_logit_max_abs_diff": diff,
+            "prefill_logit_scale": logit_scale, "first_token_agree": agree,
+            "f32_shallow_layers": cut.n_layers,
+            "f32_shallow_logit_max_abs_diff": f32_diff,
+            "f32_shallow_first_token_agree": f32_agree}
+
+
+def _trace_wave(api, params, mctx, inputs, grow, label: str) -> dict:
+    """One traced prefill of `inputs` and four traced decode steps on its
+    cache, grown by `grow` (the engine's _pad_cache)."""
+    import torch
+    with torch.inference_mode():
+        prefill = device_breakdown(lambda: api.prefill(params, inputs, mctx))
+        logits, cache = api.prefill(params, inputs, mctx)
+        cache = grow(cache)
+        tok = logits.argmax(-1).to(torch.int32)
+        pos = torch.full(tok.shape, inputs["tokens"].shape[1],
+                         dtype=torch.int32, device="cuda")
+
+        def steps() -> None:
+            for i in range(4):
+                api.decode(params, {"token": tok, "pos": pos + i}, cache,
+                           mctx)
+        decode = device_breakdown(steps)
+    decode["device_ops_per_step"] = decode["device_ops"] / 4
+    print(f"traced prefill of one wave ({label}):", prefill)
+    print(f"traced 4 decode steps ({label}):", decode)
+    return {"trace_prefill": prefill, "trace_decode_4_steps": decode}
+
+
+def _init_on_card(api, seed: int, times: dict, label: str) -> dict:
+    """The model's float32 params made on the card from the seed (the
+    memory the previous phases cached handed back first), timed into
+    times[f"{label}_init_params_s"]."""
+    import torch
+    from repro_torch.models.params import count_params, init_params
+    torch.cuda.empty_cache()
+    cfg = api.cfg
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_params(api.param_defs(), gen,
+                         getattr(torch, cfg.param_dtype))
+    torch.cuda.synchronize()
+    times[f"{label}_init_params_s"] = time.perf_counter() - t0
+    print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab}, {count_params(api.param_defs())} params "
+          f"({cfg.param_dtype}, computing in {cfg.compute_dtype}) on the card "
+          f"in {times[f'{label}_init_params_s']:.3f} s: "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    return params
 
 
 def serve_phase(seed: int, times: dict) -> dict:
@@ -1570,20 +1823,12 @@ def serve_phase(seed: int, times: dict) -> dict:
     from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.launch.mesh import make_host_mesh_ctx
     from repro_torch.models.api import ModelAPI
-    from repro_torch.models.params import count_params, init_params
+    from repro_torch.models.params import init_params
 
     cfg = get_config("granite-3-2b").replace(attn_impl="flash")
     api = ModelAPI(cfg)
     mctx = make_host_mesh_ctx(cfg)
-    t0 = time.perf_counter()
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    params = init_params(api.param_defs(), gen, getattr(torch, cfg.param_dtype))
-    torch.cuda.synchronize()
-    times["serve_init_params_s"] = time.perf_counter() - t0
-    n_params = count_params(api.param_defs())
-    print(f"granite-3-2b: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"vocab {cfg.vocab}, {n_params} params ({cfg.param_dtype}) on the "
-          f"card in {times['serve_init_params_s']:.3f} s")
+    params = _init_on_card(api, seed, times, "serve")
 
     reqs, eng, stats, launched = _serve_from_store(
         api, params, mctx, cfg.vocab, seed, "serve", ops.reset_launches,
@@ -1598,22 +1843,11 @@ def serve_phase(seed: int, times: dict) -> dict:
 
     # one wave's prefill through the flash kernel, every layer's attention
     # held against the plain version on the very inputs the serve path gave
-    # it; then the whole prefill against the plain attention path
+    # it
     wave = torch.from_numpy(np.stack([r.prompt for r in reqs[:SERVE_BATCH]]))
-    calls = []
-    kernel_path = ops.flash_attention
-
-    def recording(q, k, v, **kw):
-        out = kernel_path(q, k, v, **kw)
-        calls.append((q, k, v, kw, out))
-        return out
-
-    ops.flash_attention = recording          # layers.attention looks it up
-    try:
-        with torch.inference_mode():
-            flash_logits, _ = api.prefill(params, {"tokens": wave}, mctx)
-    finally:
-        ops.flash_attention = kernel_path
+    with torch.inference_mode():
+        _, calls = _recorded_flash(
+            lambda: api.prefill(params, {"tokens": wave}, mctx))
     check(len(calls) == cfg.n_layers, f"{len(calls)} flash calls in a "
           f"prefill of {cfg.n_layers} layers")
     layer_err = 0.0
@@ -1631,69 +1865,19 @@ def serve_phase(seed: int, times: dict) -> dict:
           f"{FLASH_TOL[cfg.compute_dtype]} of its plain version: max abs "
           f"error {layer_err:.6f} over {cfg.n_layers} layers (layer 0 q std "
           f"{q_std:.3f})")
-    plain = ModelAPI(cfg.replace(attn_impl="jnp"))
-    with torch.inference_mode():
-        plain_logits, _ = plain.prefill(params, {"tokens": wave}, mctx)
-    fl, pl = flash_logits.float(), plain_logits.float()
-    check(bool(torch.isfinite(fl).all()), "prefill logits not finite")
-    diff = float((fl - pl).abs().max())
-    scale = float(pl.abs().max())
-    agree = int((fl.argmax(-1) == pl.argmax(-1)).sum())
-    # Not a check: the reference's fan-in rule (over w_q's head axis) makes
-    # the random-weight model chaotic at these widths, so the two attention
-    # paths' bf16 roundings drift apart over the layers. The reference's
-    # own flash and plain paths diverge the same way on the CPU
-    # (scripts/attention_paths_witness.py); the per-layer check above and
-    # the shallow float32 check below are what hold the path.
-    print(f"prefill logits, flash vs plain attention path (bf16, "
-          f"{cfg.n_layers} layers): max abs difference {diff:.6f} at logit "
-          f"scale {scale:.6f}; first greedy token agrees in {agree} of "
-          f"{SERVE_BATCH} rows")
-
-    # the same wave at full width in float32, through the first
-    # SHALLOW_LAYERS layers of the same params, before the drift sets in:
-    # the two paths' logits within 1e-3 and every row's first greedy token
-    # the same
-    shallow = cfg.replace(n_layers=SHALLOW_LAYERS, compute_dtype="float32")
-    shallow_params = dict(params, blocks=first_layers(params["blocks"],
-                                                      SHALLOW_LAYERS))
-    with torch.inference_mode():
-        f32 = [ModelAPI(shallow.replace(attn_impl=impl)).prefill(
-            shallow_params, {"tokens": wave}, mctx)[0]
-            for impl in ("flash", "jnp")]
-    f32_diff, ok = in_tolerance(f32[0], f32[1], 1e-3)
-    f32_agree = int((f32[0].argmax(-1) == f32[1].argmax(-1)).sum())
-    print(f"prefill logits, flash vs plain attention path (float32, "
-          f"{SHALLOW_LAYERS} layers, full width): max abs difference "
-          f"{f32_diff:.3e} at logit scale {float(f32[1].abs().max()):.6f}; "
-          f"first greedy token agrees in {f32_agree} of {SERVE_BATCH} rows")
-    check(ok, f"float32 prefill logits of the two paths differ by {f32_diff}")
-    check(f32_agree == SERVE_BATCH, "float32 first greedy tokens differ: "
-          f"{f32_agree} of {SERVE_BATCH} rows agree")
     stats.update({"layer_attention_max_abs_err": layer_err,
-                  "layer0_q_std": q_std,
-                  "prefill_logit_max_abs_diff": diff,
-                  "prefill_logit_scale": scale, "first_token_agree": agree,
-                  "f32_shallow_logit_max_abs_diff": f32_diff,
-                  "f32_shallow_first_token_agree": f32_agree})
-
+                  "layer0_q_std": q_std})
+    # the whole prefill against the plain attention path, and the same
+    # wave at full width in float32 through the first SHALLOW_LAYERS
+    # layers of the same params, before the drift sets in
+    shallow = cfg.replace(n_layers=SHALLOW_LAYERS, compute_dtype="float32")
+    stats.update(_paths_agree(
+        api, params, shallow,
+        dict(params, blocks=first_layers(params["blocks"], SHALLOW_LAYERS)),
+        {"tokens": wave}, mctx, "granite-3-2b"))
     # where a wave's time goes: one traced prefill and four decode steps
-    with torch.inference_mode():
-        stats["trace_prefill"] = device_breakdown(
-            lambda: api.prefill(params, {"tokens": wave}, mctx))
-        _, cache = api.prefill(params, {"tokens": wave}, mctx)
-        cache = eng._pad_cache(cache)
-        tok = flash_logits.argmax(-1).to(torch.int32)
-        pos = torch.full((SERVE_BATCH,), SERVE_PLEN, dtype=torch.int32,
-                         device="cuda")
-
-        def steps() -> None:
-            for i in range(4):
-                api.decode(params, {"token": tok, "pos": pos + i}, cache,
-                           mctx)
-        stats["trace_decode_4_steps"] = device_breakdown(steps)
-    print("traced prefill of one wave:", stats["trace_prefill"])
-    print("traced 4 decode steps:", stats["trace_decode_4_steps"])
+    stats.update(_trace_wave(api, params, mctx, {"tokens": wave},
+                             eng._pad_cache, "granite-3-2b"))
 
     # a small float32 model, flash against plain, to the reference's 1e-4
     small = tiny_config("granite-3-2b").replace(head_dim=64)
@@ -1716,9 +1900,9 @@ def serve_phase(seed: int, times: dict) -> dict:
 
 
 # -- phase 8: serving recurrentgemma-2b and rwkv6-1.6b at full width -----------
-REC_SERVE = {  # arch -> kernel, the cut for the float32 whole-model check
-    "recurrentgemma-2b": ("rglru_scan", "one super-block (R, R, A)"),
-    "rwkv6-1.6b": ("wkv6", f"{SHALLOW_LAYERS} layers"),
+REC_SERVE = {  # arch -> its scan kernel
+    "recurrentgemma-2b": "rglru_scan",
+    "rwkv6-1.6b": "wkv6",
 }
 REC_MAIN_ARGS = ["--requests", "4", "--batch", "2", "--prompt-len", "32",
                  "--max-new", "8"]
@@ -1762,9 +1946,9 @@ def serve_recurrent_phase(arch: str, seed: int, times: dict) -> dict:
     from repro_torch.launch.mesh import make_host_mesh_ctx
     from repro_torch.models import recurrent
     from repro_torch.models.api import ModelAPI
-    from repro_torch.models.params import count_params, init_params
+    from repro_torch.models.params import count_params
 
-    kernel, cut_name = REC_SERVE[arch]
+    kernel = REC_SERVE[arch]
     kops, attr, plain_fn, plain_name, tol = _kernel_ops(kernel)
     cfg = get_config(arch).replace(attn_impl="flash")
     if cfg.family == "hybrid":
@@ -1774,16 +1958,8 @@ def serve_recurrent_phase(arch: str, seed: int, times: dict) -> dict:
         per_prefill, per_step = cfg.n_layers, 0
     api = ModelAPI(cfg)
     mctx = make_host_mesh_ctx(cfg)
-    t0 = time.perf_counter()
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    params = init_params(api.param_defs(), gen, getattr(torch, cfg.param_dtype))
-    torch.cuda.synchronize()
-    times[f"{arch}_init_params_s"] = time.perf_counter() - t0
+    params = _init_on_card(api, seed, times, arch)
     n_params = count_params(api.param_defs())
-    print(f"{arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
-          f"{cfg.vocab}, {n_params} params ({cfg.param_dtype}, computing in "
-          f"{cfg.compute_dtype}) on the card in "
-          f"{times[f'{arch}_init_params_s']:.3f} s")
 
     def counts() -> dict:
         return {kernel: kops.launches()["fwd"],
@@ -1850,57 +2026,16 @@ def serve_recurrent_phase(arch: str, seed: int, times: dict) -> dict:
     print(f"every {kernel} call of one wave's prefill and decode step on the "
           f"path's own inputs within {tol} of its {plain_name}: max abs "
           f"error {mixer_err:.3e} over {n_prefill} + {per_step} calls")
-    plain = ModelAPI(cfg.replace(attn_impl="jnp"))
-    with torch.inference_mode():
-        plain_logits, _ = plain.prefill(params, {"tokens": wave}, mctx)
-    fl, pl = logits.float(), plain_logits.float()
-    check(bool(torch.isfinite(fl).all()), "prefill logits not finite")
-    diff = float((fl - pl).abs().max())
-    agree = int((fl.argmax(-1) == pl.argmax(-1)).sum())
-    # printed, not checked: at full depth in bf16 two paths' roundings may
-    # drift apart in the random-weight model (ROADMAP Queue 3)
-    print(f"prefill logits, kernel vs plain path (bf16, {cfg.n_layers} "
-          f"layers): max abs difference {diff:.6f} at logit scale "
-          f"{float(pl.abs().max()):.6f}; first greedy token agrees in {agree}"
-          f" of {SERVE_BATCH} rows")
-
-    # the whole model at full width in float32 through its first layers:
-    # logits within 1e-3 and every first greedy token the same
+    stats["mixer_max_abs_err"] = mixer_err
+    # the whole prefill against the plain path, and the model at full width
+    # in float32 through its first layers (one super-block, or 2 layers)
     cut, cut_params = _cut_params(params, cfg.replace(compute_dtype="float32"))
-    with torch.inference_mode():
-        f32 = [ModelAPI(cut.replace(attn_impl=impl)).prefill(
-            cut_params, {"tokens": wave}, mctx)[0]
-            for impl in ("flash", "jnp")]
-    f32_diff, ok = in_tolerance(f32[0], f32[1], 1e-3)
-    f32_agree = int((f32[0].argmax(-1) == f32[1].argmax(-1)).sum())
-    print(f"prefill logits, kernel vs plain path (float32, {cut_name}, full "
-          f"width): max abs difference {f32_diff:.3e} at logit scale "
-          f"{float(f32[1].abs().max()):.6f}; first greedy token agrees in "
-          f"{f32_agree} of {SERVE_BATCH} rows")
-    check(ok, f"float32 prefill logits of the two paths differ by {f32_diff}")
-    check(f32_agree == SERVE_BATCH, "float32 first greedy tokens differ: "
-          f"{f32_agree} of {SERVE_BATCH} rows agree")
-    del f32
-    stats.update({"mixer_max_abs_err": mixer_err,
-                  "prefill_logit_max_abs_diff": diff,
-                  "first_token_agree": agree,
-                  "f32_shallow_logit_max_abs_diff": f32_diff,
-                  "f32_shallow_first_token_agree": f32_agree})
-
+    stats.update(_paths_agree(api, params, cut, cut_params, {"tokens": wave},
+                              mctx, arch))
     # where a wave's time goes: one traced prefill and four decode steps
-    with torch.inference_mode():
-        stats["trace_prefill"] = device_breakdown(
-            lambda: api.prefill(params, {"tokens": wave}, mctx))
-        _, state = api.prefill(params, {"tokens": wave}, mctx)
-
-        def steps() -> None:
-            for i in range(4):
-                api.decode(params, {"token": tok, "pos": pos + i}, state,
-                           mctx)
-        stats["trace_decode_4_steps"] = device_breakdown(steps)
-    print(f"traced prefill of one wave ({arch}):", stats["trace_prefill"])
-    print(f"traced 4 decode steps ({arch}):", stats["trace_decode_4_steps"])
-    del params, state, eng, logits, plain_logits, cut_params
+    stats.update(_trace_wave(api, params, mctx, {"tokens": wave},
+                             eng._pad_cache, arch))
+    del params, state, eng, logits, cut_params
 
     # launch/serve.py main, through its own command line, on the tiny config
     t0 = time.perf_counter()
@@ -1911,7 +2046,352 @@ def serve_recurrent_phase(arch: str, seed: int, times: dict) -> dict:
     return stats
 
 
-# -- phase 9: training dense-100m at full width from the store ----------------
+# -- phase 9: serving the moe family at full width, the depth cut ------------
+MOE_SERVE = {  # arch -> layers kept of its 40 / 60 (full width, one card)
+    "dbrx-132b": 4,             # 13.0 GB a layer + 4.9 GB embed and unembed
+    "deepseek-v2-236b": 3,      # 15.9 GB a layer + 4.2 GB
+}
+FP8_ARCH = "dbrx-132b"          # the reference's fp8 dispatch config
+FP8_EDGES = (448.0, -448.0, 463.99, 464.0, -464.0, 464.01, -466.0, 480.0,
+             1e4, float("inf"), float("-inf"), float("nan"), 0.0, -0.0,
+             2.0 ** -9, 2.0 ** -10, 1e-30)
+
+
+def _fp8_dispatch_check(api, params, mctx, wave, seed: int) -> dict:
+    """One prefill wave with the float8_e4m3fn dispatch: finite logits and
+    a loss within 10% of the bf16 dispatch's (tests/test_perf_variants.py);
+    then the cast rule (NaN above 464 and for ±inf) on the card, bit for
+    bit the CPU's, which the CPU tests hold against JAX."""
+    import dataclasses
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.models.api import ModelAPI
+    cfg = api.cfg
+    api8 = ModelAPI(cfg.replace(moe=dataclasses.replace(
+        cfg.moe, dispatch_dtype="float8_e4m3fn")))
+    batch = {"tokens": wave, "labels": torch.roll(wave, -1, dims=1)}
+    with torch.inference_mode():
+        logits8, _ = api8.prefill(params, {"tokens": wave}, mctx)
+        check(bool(torch.isfinite(logits8).all()),
+              "fp8 dispatch: prefill logits not finite")
+        loss8 = float(api8.loss(params, batch, mctx))
+        loss = float(api.loss(params, batch, mctx))
+    check(np.isfinite(loss8) and abs(loss8 - loss) < 0.1 * max(abs(loss), 1.0),
+          f"fp8 dispatch loss {loss8} vs bf16 dispatch {loss}")
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.cat([torch.tensor(FP8_EDGES),
+                   300 * torch.randn(1 << 20, generator=gen)])
+    for src in (x, x.bfloat16()):
+        want = moe.to_dispatch(src, torch.float8_e4m3fn)
+        got = moe.to_dispatch(src.cuda(), torch.float8_e4m3fn)
+        check(torch.equal(got.view(torch.uint8).cpu(), want.view(torch.uint8)),
+              f"fp8 dispatch cast from {src.dtype}: card bits differ")
+        check(bool(torch.isnan(got[6:12].float()).all()),
+              "fp8 dispatch cast: no NaN above 464")
+    print(f"fp8 dispatch ({cfg.name}): logits finite, loss {loss8:.6f} vs "
+          f"bf16 dispatch {loss:.6f}; the cast's NaN-above-464 rule on the "
+          f"card bit for bit the CPU's on {x.numel()} values, from float32 "
+          "and bfloat16")
+    return {"fp8_loss": loss8, "bf16_dispatch_loss": loss}
+
+
+def serve_moe_phase(arch: str, seed: int, times: dict) -> dict:
+    """Serves `arch` (the moe family) with attn_impl="flash" at full width,
+    cut to MOE_SERVE[arch] layers, from the store as the granite phase
+    does: dbrx's GQA prefill reaches the flash kernel once a layer,
+    deepseek-v2's MLA never."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch.mesh import make_host_mesh_ctx
+    from repro_torch.models.api import ModelAPI
+
+    full = get_config(arch)
+    cfg = full.replace(n_layers=MOE_SERVE[arch], attn_impl="flash")
+    api = ModelAPI(cfg)
+    mctx = make_host_mesh_ctx(cfg)
+    params = _init_on_card(api, seed, times, arch)
+    per_wave = cfg.n_layers if cfg.mla is None else 0
+
+    reqs, eng, stats, launched = _serve_from_store(
+        api, params, mctx, cfg.vocab, seed, f"serve {arch}",
+        ops.reset_launches,
+        lambda: {"flash_attention_fwd": ops.launches()["fwd"]})
+    launches = launched["flash_attention_fwd"]
+    times[f"{arch}_serve_s"] = stats["wall_s"]
+    check(launches == per_wave * stats["waves"],
+          f"flash_attention_fwd launched {launches} times on the {arch} "
+          f"path, not {per_wave} x {stats['waves']} waves")
+    stats.update({"flash_launches": launches, "layers": cfg.n_layers,
+                  "of_layers": full.n_layers})
+
+    wave = torch.from_numpy(np.stack([r.prompt for r in reqs[:SERVE_BATCH]]))
+    # the memory a prefill wave takes above the params (the experts'
+    # weights are cast to bf16 a layer a call, as the reference casts them)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        api.prefill(params, {"tokens": wave}, mctx)
+    torch.cuda.synchronize()
+    stats["prefill_transient_gb"] = (torch.cuda.max_memory_allocated()
+                                     - base) / 1e9
+    print(f"{arch}: a prefill wave takes {stats['prefill_transient_gb']:.3f} "
+          f"GB above the {base / 1e9:.3f} GB of params")
+    with torch.inference_mode():
+        _, calls = _recorded_flash(
+            lambda: api.prefill(params, {"tokens": wave}, mctx))
+    check(len(calls) == per_wave, f"{len(calls)} flash calls in a prefill "
+          f"of {arch}, not {per_wave}")
+    if calls:
+        stats.update(_flash_calls_err(calls, FLASH_TOL[cfg.compute_dtype],
+                                      arch))
+    del calls
+
+    # full width in float32 through the first layer, the dispatch in
+    # float32 too: the wire that rounds nothing, as bf16 does at bf16
+    cut = cfg.replace(n_layers=1, compute_dtype="float32",
+                      moe=dataclasses.replace(cfg.moe,
+                                              dispatch_dtype="float32"))
+    stats.update(_paths_agree(
+        api, params, cut, dict(params, blocks=first_layers(params["blocks"],
+                                                           1)),
+        {"tokens": wave}, mctx, arch))
+    if arch == FP8_ARCH:
+        stats.update(_fp8_dispatch_check(api, params, mctx, wave, seed))
+    stats.update(_trace_wave(api, params, mctx, {"tokens": wave},
+                             eng._pad_cache, arch))
+    del params, eng
+
+    # launch/serve.py main, through its own command line, on the tiny config
+    t0 = time.perf_counter()
+    tok_s = launch_serve.main(["--arch", f"tiny-{arch}", *REC_MAIN_ARGS])
+    times[f"{arch}_main_s"] = time.perf_counter() - t0
+    check(tok_s > 0, f"launch/serve.py main --arch tiny-{arch}: {tok_s}")
+    stats["main_tokens_per_s"] = tok_s
+    return stats
+
+
+# -- phase 10: the vlm and encdec families at full width ----------------------
+VLM = "llama-3.2-vision-90b"
+VLM_SUPER_BLOCKS = 2        # of its 20: 10 of 100 layers, 3.4 GB a layer
+WHISPER = "whisper-tiny"
+WHISPER_PLEN = 384          # + 32 new + 8 stays within DEC_PRIME = 448
+
+
+def _inputs_engine(api, params, mctx, plen: int, max_seq: int, extra):
+    """BatchedEngine for the vlm and encdec families, which launch/serve.py
+    does not serve (nor does the reference's: their prefill takes inputs
+    besides the tokens). Each wave's prefill goes through ModelAPI.prefill
+    with `extra(rids)`, the other inputs of the wave's requests (a partial
+    wave repeats its last request, as run_wave pads it). The engine's
+    _pad_cache grows their self caches for decode."""
+    from repro_torch.launch.serve import BatchedEngine
+
+    class WaveInputs:
+        """The API as run_wave calls it, with the wave's other inputs."""
+        def __init__(self):
+            self.cfg, self.rids = api.cfg, []
+
+        def prefill(self, params, inputs, mctx):
+            return api.prefill(params, dict(inputs, **extra(self.rids)),
+                               mctx)
+
+        def decode(self, *args):
+            return api.decode(*args)
+
+    class InputsEngine(BatchedEngine):
+        def run_wave(self, reqs):
+            self.api.rids = ([r.rid for r in reqs]
+                             + [reqs[-1].rid] * (self.batch - len(reqs)))
+            super().run_wave(reqs)
+
+    return InputsEngine(WaveInputs(), params, mctx, SERVE_BATCH, plen,
+                        max_seq)
+
+
+def serve_vlm_phase(seed: int, times: dict) -> dict:
+    """llama-3.2-vision-90b at full width, VLM_SUPER_BLOCKS super-blocks,
+    attn_impl="flash", with seeded nonzero gates (at zero they remove the
+    cross path): prompts from the store and 4,096 x 1,280 patch embeddings
+    a request made on the card from the seed, through ModelAPI.prefill and
+    decode in BatchedEngine's greedy waves. The self layers' prefill
+    reaches the flash kernel, the cross layers the plain attention."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch.mesh import make_host_mesh_ctx
+    from repro_torch.models import vlm
+    from repro_torch.models.api import ModelAPI
+    from repro_torch.models.params import tree_map
+
+    full = get_config(VLM)
+    cfg = full.replace(n_layers=VLM_SUPER_BLOCKS * full.vlm.cross_every,
+                       attn_impl="flash")
+    api = ModelAPI(cfg)
+    mctx = make_host_mesh_ctx(cfg)
+    params = _init_on_card(api, seed, times, VLM)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    cross = params["super"]["cross"]
+    for key in ("gate_attn", "gate_mlp"):    # |g| in [0.5, 1.5), either sign
+        mag = 0.5 + torch.rand(cross[key].shape, generator=gen, device="cuda")
+        sign = torch.rand(cross[key].shape, generator=gen, device="cuda")
+        cross[key].copy_(torch.where(sign < 0.5, -mag, mag))
+    embeds = torch.randn((SERVE_REQUESTS, cfg.vlm.n_vision_tokens,
+                          cfg.vlm.d_vision), generator=gen, device="cuda")
+
+    def extra(rids) -> dict:
+        return {"vision_embeds": embeds[[r % SERVE_REQUESTS for r in rids]]}
+
+    per_wave = vlm.n_super(cfg) * (cfg.vlm.cross_every - 1)
+    reqs, eng, stats, launched = _serve_from_store(
+        api, params, mctx, cfg.vocab, seed, f"serve {VLM}",
+        ops.reset_launches,
+        lambda: {"flash_attention_fwd": ops.launches()["fwd"]},
+        engine=lambda max_seq: _inputs_engine(api, params, mctx, SERVE_PLEN,
+                                              max_seq, extra))
+    launches = launched["flash_attention_fwd"]
+    times[f"{VLM}_serve_s"] = stats["wall_s"]
+    check(launches == per_wave * stats["waves"],
+          f"flash_attention_fwd launched {launches} times on the {VLM} path, "
+          f"not {per_wave} self layers x {stats['waves']} waves")
+    stats.update({"flash_launches": launches, "layers": cfg.n_layers,
+                  "of_layers": full.n_layers,
+                  "gates": {k: cross[k].tolist()
+                            for k in ("gate_attn", "gate_mlp")}})
+
+    wave = torch.from_numpy(np.stack([r.prompt for r in reqs[:SERVE_BATCH]]))
+    inputs = {"tokens": wave, **extra(range(SERVE_BATCH))}
+    with torch.inference_mode():
+        _, calls = _recorded_flash(lambda: api.prefill(params, inputs, mctx))
+    check(len(calls) == per_wave, f"{len(calls)} flash calls in a prefill "
+          f"of {VLM}, not {per_wave}")
+    stats.update(_flash_calls_err(calls, FLASH_TOL[cfg.compute_dtype], VLM))
+    del calls
+    # full width in float32 through the first self layer and the first
+    # cross layer (a super-block of cross_every = 2). The whole first
+    # super-block (4 self layers) is printed, not held: the random-weight
+    # model's attention scores spread to a std of 360 (|v| to 177), where
+    # float32 attention is itself up to 0.037 off exact at every call, the
+    # float32 kernel and the plain version alike (within 3.1e-5 of each
+    # other), and 4 such layers grow that into logits 0.27-0.29 off those
+    # of exact attention on both paths, 2e-2 off each other
+    # (scripts/flash_d128_accuracy_witness.py)
+    one = cfg.replace(n_layers=2, compute_dtype="float32",
+                      vlm=dataclasses.replace(cfg.vlm, cross_every=2))
+    one_params = dict(params, super={
+        "self": tree_map(lambda v: v[:1, :1], params["super"]["self"]),
+        "cross": first_layers(params["super"]["cross"], 1)})
+    stats.update(_paths_agree(api, params, one, one_params, inputs, mctx,
+                              VLM))
+    block = cfg.replace(n_layers=cfg.vlm.cross_every, compute_dtype="float32")
+    diff, ok, agree, scale = _f32_paths(
+        block, dict(params, super=first_layers(params["super"], 1)), inputs,
+        mctx)
+    print(f"{VLM}: prefill logits, flash vs plain path (float32, the first "
+          f"super-block of {block.n_layers} layers, printed): max abs "
+          f"difference {diff:.3e} at logit scale {scale:.6f}; first greedy "
+          f"token agrees in {agree} of {SERVE_BATCH} rows")
+    stats.update({"f32_super_block_logit_max_abs_diff": diff,
+                  "f32_super_block_first_token_agree": agree})
+    stats.update(_trace_wave(api, params, mctx, inputs, eng._pad_cache, VLM))
+    return stats
+
+
+def serve_whisper_phase(seed: int, times: dict) -> dict:
+    """whisper-tiny whole, attn_impl="flash" (which its plain attention
+    ignores): WHISPER_PLEN-token decoder prompts from the store and 1,500 x
+    384 encoder frames a request made on the card from the seed, through
+    ModelAPI.prefill and decode in BatchedEngine's greedy waves. It makes
+    no kernel launch; its float32 prefill on the card is held against the
+    port's own run on the CPU."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch.mesh import make_host_mesh_ctx
+    from repro_torch.models.api import ModelAPI
+    from repro_torch.models.context import single_device_ctx
+    from repro_torch.models.params import tree_map
+
+    cfg = get_config(WHISPER).replace(attn_impl="flash")
+    api = ModelAPI(cfg)
+    mctx = make_host_mesh_ctx(cfg)
+    params = _init_on_card(api, seed, times, WHISPER)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    frames = torch.randn((SERVE_REQUESTS, cfg.encdec.n_frames, cfg.d_model),
+                         generator=gen, device="cuda")
+
+    def extra(rids) -> dict:
+        return {"frames": frames[[r % SERVE_REQUESTS for r in rids]]}
+
+    reqs, eng, stats, launched = _serve_from_store(
+        api, params, mctx, cfg.vocab, seed, f"serve {WHISPER}",
+        ops.reset_launches,
+        lambda: {"flash_attention_fwd": ops.launches()["fwd"]},
+        plen=WHISPER_PLEN,
+        engine=lambda max_seq: _inputs_engine(api, params, mctx,
+                                              WHISPER_PLEN, max_seq, extra))
+    times[f"{WHISPER}_serve_s"] = stats["wall_s"]
+    check(launched["flash_attention_fwd"] == 0,
+          f"flash_attention_fwd launched {launched['flash_attention_fwd']} "
+          f"times on the {WHISPER} path")
+    stats["flash_launches"] = 0
+
+    wave = torch.from_numpy(np.stack([r.prompt for r in reqs[:SERVE_BATCH]]))
+    inputs = {"tokens": wave, **extra(range(SERVE_BATCH))}
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    cpu_inputs = {k: v.cpu() for k, v in inputs.items()}
+
+    def card_vs_cpu(cut, cut_params, cut_cpu_params) -> tuple:
+        with torch.inference_mode():
+            card = ModelAPI(cut).prefill(cut_params, inputs, mctx)[0].cpu()
+            cpu = ModelAPI(cut, device="cpu").prefill(
+                cut_cpu_params, cpu_inputs,
+                single_device_ctx(cut, device="cpu"))[0]
+        diff, ok = in_tolerance(card, cpu, 1e-3)
+        return (diff, ok, int((card.argmax(-1) == cpu.argmax(-1)).sum()),
+                float(cpu.abs().max()))
+
+    # float32, full width, through the first encoder and decoder layers:
+    # held. The whole model is printed, not held: the random-weight
+    # encoder's attention outputs reach |100|, and its layers multiply a
+    # difference between the two devices' float32 roundings some 10x a
+    # layer, so that the 4-layer encoder's outputs part by more than the
+    # logits' scale
+    f32 = cfg.replace(compute_dtype="float32")
+    one = f32.replace(n_layers=1, encdec=dataclasses.replace(
+        cfg.encdec, n_enc_layers=1))
+
+    def first(tree):
+        return dict(tree, enc=first_layers(tree["enc"], 1),
+                    dec=first_layers(tree["dec"], 1))
+    diff, ok, agree, scale = card_vs_cpu(one, first(params),
+                                         first(cpu_params))
+    print(f"{WHISPER}: float32 prefill logits on the card vs the port on the "
+          f"CPU (1 encoder and 1 decoder layer, full width): max abs "
+          f"difference {diff:.3e} at logit scale {scale:.6f}; first greedy "
+          f"token agrees in {agree} of {SERVE_BATCH} rows")
+    check(ok, f"{WHISPER}: card and CPU float32 logits differ by {diff}")
+    check(agree == SERVE_BATCH, f"{WHISPER}: first greedy tokens differ")
+    whole, _, whole_agree, whole_scale = card_vs_cpu(f32, params, cpu_params)
+    print(f"{WHISPER}: the same, whole (4 + 4 layers, printed): max abs "
+          f"difference {whole:.3e} at logit scale {whole_scale:.6f}; first "
+          f"greedy token agrees in {whole_agree} of {SERVE_BATCH} rows")
+    del cpu_params
+    stats.update({"f32_card_vs_cpu_logit_max_abs_diff": diff,
+                  "f32_card_vs_cpu_first_token_agree": agree,
+                  "f32_card_vs_cpu_whole_logit_max_abs_diff": whole,
+                  "f32_card_vs_cpu_whole_first_token_agree": whole_agree})
+    stats.update(_trace_wave(api, params, mctx, inputs, eng._pad_cache,
+                             WHISPER))
+    return stats
+
+
+# -- phase 11: training dense-100m at full width from the store ---------------
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICROBATCHES = 30, 8, 256, 2
 TRAIN_CKPT_EVERY, TRAIN_DRILL_AT = 10, 15
 TRAIN_MAIN_ARGS = ["--arch", "dense-100m", "--steps", "5", "--global-batch",
@@ -2311,6 +2791,18 @@ def main(argv=None) -> int:
             rec_serve[arch] = serve_recurrent_phase(arch, args.seed, times)
             times[f"{arch}_phase_s"] = time.perf_counter() - t0
 
+        moe_serve = {}
+        for arch in MOE_SERVE:
+            t0 = time.perf_counter()
+            moe_serve[arch] = serve_moe_phase(arch, args.seed, times)
+            times[f"{arch}_phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        vlm_serve = serve_vlm_phase(args.seed, times)
+        times[f"{VLM}_phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        whisper_serve = serve_whisper_phase(args.seed, times)
+        times[f"{WHISPER}_phase_s"] = time.perf_counter() - t0
+
         t0 = time.perf_counter()
         train = train_phase(args.seed, times)
         times["train_phase_s"] = time.perf_counter() - t0
@@ -2326,9 +2818,16 @@ def main(argv=None) -> int:
     print("direct placement:", json.dumps(direct))
     print("integrity on the placed stream:", json.dumps(stream))
     print("serve:", json.dumps(serve))
-    for arch, stats in rec_serve.items():
+    for arch, stats in (*rec_serve.items(), *moe_serve.items(),
+                        (VLM, vlm_serve), (WHISPER, whisper_serve)):
         print(f"serve {arch}:", json.dumps(stats))
     print("train:", json.dumps(train))
+    # flash_attention_fwd's serve paths, each counted from 0 just before it
+    flash_paths = {"granite-3-2b": serve["flash_launches"],
+                   "dbrx-132b": moe_serve["dbrx-132b"]["flash_launches"],
+                   VLM: vlm_serve["flash_launches"]}
+    for arch, leg in flash["d128"].items():
+        leg["launches"] = flash_paths[arch]
     bwd = flash_bwd["shapes"]["train"]
     rgp, wkv = scans["rglru"]["legs"]["prefill"], scans["wkv"]
     print(json.dumps({"kernels": [{
@@ -2341,7 +2840,8 @@ def main(argv=None) -> int:
         "legs": kern["legs"], "floor_ms": kern["floor_ms"],
         "floor_call_ms": kern["floor_call_ms"]}, {
         "name": "flash_attention_fwd", "route": "cuda", "source": FK.SOURCE,
-        "replaces": FK.REPLACES, "launches": serve["flash_launches"],
+        "replaces": FK.REPLACES, "launches": sum(flash_paths.values()),
+        "launches_by_path": flash_paths, "d128": flash["d128"],
         "max_abs_err": flash["max_abs_err"], "ms": flash["ms"],
         "call_ms": flash["call_ms"], "plain_ms": flash["plain_ms"],
         "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],

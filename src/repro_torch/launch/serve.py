@@ -34,6 +34,29 @@ from repro_torch.models.api import ModelAPI
 from repro_torch.models.params import init_params
 
 TOKEN_BYTES = 4
+# the sequence axis of each family's self-attention caches: (L,B,S,KH,D)
+# keys and values (dense, moe, encdec), MLA's (L,B,S,r) latent and
+# (L,B,S,rope) rotary key, the vlm's (n_super,k,B,S,KH,D)
+SEQ_AXIS = {"dense": 2, "moe": 2, "encdec": 2, "vlm": 3}
+
+
+def grow_seq(x: torch.Tensor, axis: int, n: int) -> torch.Tensor:
+    """x with n zero positions appended on `axis`."""
+    return F.pad(x, [0, 0] * (x.dim() - 1 - axis) + [0, n])
+
+
+def grow_cache(cache: dict, family: str, n: int) -> dict:
+    """A prefill cache with n zero positions appended to its
+    self-attention caches, by position. The vlm's and encdec's caches
+    keep them under "self"; their cross caches keep their length. Hybrid
+    and ssm state is O(1) in the sequence and passes through unchanged."""
+    if family not in SEQ_AXIS:
+        return cache
+    axis = SEQ_AXIS[family]
+    if family in ("vlm", "encdec"):
+        return dict(cache, self={k: grow_seq(x, axis, n)
+                                 for k, x in cache["self"].items()})
+    return {k: grow_seq(x, axis, n) for k, x in cache.items()}
 
 
 @dataclass
@@ -81,16 +104,16 @@ class BatchedEngine:
         self.decode_s = 0.0
 
     def _pad_cache(self, cache):
-        """Grow the sequence axis (axis 2 of the stacked (L,B,S,KH,D)
-        caches) of the dense family from prompt_len to max_seq for decode.
-        The reference pads the first axis whose size equals prompt_len,
-        which is the layer axis when prompt_len == n_layers; the port pads
-        by position. Hybrid and ssm state is O(1) in the sequence and
-        passes through unchanged, as in the reference."""
-        if self.api.cfg.family != "dense":
-            return cache
-        grow = self.max_seq - self.prompt_len
-        return {k: F.pad(x, (0, 0, 0, 0, 0, grow)) for k, x in cache.items()}
+        """Grow the self-attention caches' sequence axis from prompt_len to
+        max_seq for decode (`grow_cache`). The reference pads the first
+        axis whose size equals prompt_len, which is the layer axis when
+        prompt_len == n_layers; the port pads by position. Hybrid and ssm
+        state passes through unchanged, as in the reference. This
+        engine's waves prefill the tokens alone, so they serve no vlm or
+        encdec model (nor do the reference's): those take inputs besides
+        the tokens."""
+        return grow_cache(cache, self.api.cfg.family,
+                          self.max_seq - self.prompt_len)
 
     def run_wave(self, reqs: List[Request]) -> None:
         n = len(reqs)

@@ -6,10 +6,13 @@
     out, cache  = api.decode(params, inputs, cache, mctx)
     api.cache_specs(batch, seq_len) -> shapes and dtypes (no allocation)
 
-The dense (`transformer.py`), hybrid (`recurrent.py`) and ssm (`rwkv.py`)
-families are ported; moe, vlm and encdec raise, naming their ROADMAP
-item. Inputs may be tensors or arrays; arrays are placed on the API's
-device, the CUDA card unless the caller asks for the CPU.
+Every family of the reference is ported: dense and moe (`transformer.py`,
+with `moe.py`), hybrid (`recurrent.py`), ssm (`rwkv.py`), vlm (`vlm.py`)
+and encdec (`encdec.py`). Inputs may be tensors or arrays; arrays are
+placed on the API's device, the CUDA card unless the caller asks for the
+CPU. The reference's sharding specs (`cache_pspecs`, `input_specs`,
+`input_pspecs`) wait for the multi-device and dry-run items of ROADMAP
+Queue 1.
 """
 from __future__ import annotations
 
@@ -34,16 +37,18 @@ class ModelAPI:
     @property
     def _m(self):
         fam = self.cfg.family
-        if fam == "dense":
+        if fam in ("dense", "moe"):
             from repro_torch.models import transformer as m
         elif fam == "hybrid":
             from repro_torch.models import recurrent as m
         elif fam == "ssm":
             from repro_torch.models import rwkv as m
+        elif fam == "vlm":
+            from repro_torch.models import vlm as m
+        elif fam == "encdec":
+            from repro_torch.models import encdec as m
         else:
-            raise NotImplementedError(
-                f"the {fam} family is not ported yet (ROADMAP Queue 1 item "
-                "10, remaining families)")
+            raise ValueError(fam)
         return m
 
     def _tensor(self, x) -> torch.Tensor:
@@ -57,8 +62,18 @@ class ModelAPI:
         return self._m.loss_fn(params, batch, self.cfg, mctx)
 
     def prefill(self, params, inputs: Dict[str, Any], mctx: MeshCtx):
-        return self._m.prefill(params, self._tensor(inputs["tokens"]),
-                               self.cfg, mctx)
+        """Prefill on `tokens`, with the vlm's `vision_embeds` (B, N,
+        d_vision) or the encdec's encoder `frames` (B, F, d_model)."""
+        cfg, fam = self.cfg, self.cfg.family
+        tokens = self._tensor(inputs["tokens"])
+        if fam == "vlm":
+            return self._m.prefill(params, tokens,
+                                   self._tensor(inputs["vision_embeds"]),
+                                   cfg, mctx)
+        if fam == "encdec":
+            return self._m.prefill(params, self._tensor(inputs["frames"]),
+                                   tokens, cfg, mctx)
+        return self._m.prefill(params, tokens, cfg, mctx)
 
     def decode(self, params, inputs: Dict[str, Any], cache, mctx: MeshCtx):
         """One decode step; the cache (or state) is updated in place and
@@ -68,11 +83,17 @@ class ModelAPI:
                                    self.cfg, mctx)
 
     def cache_specs(self, batch: int, seq_len: int, dtype=None):
-        """The dense KV cache in cfg.kv_cache_dtype, or the hybrid and ssm
-        decode state (O(1) in seq_len) with its float32 and int32 leaves
-        and the rest in bfloat16, unless `dtype` is given."""
-        m = self._m
-        if self.cfg.family == "dense":
-            return m.cache_spec(self.cfg, batch, seq_len, dtype)
-        return m.state_spec(self.cfg, batch,
-                            torch.bfloat16 if dtype is None else dtype)
+        """The KV caches of the dense, moe, vlm and encdec families in
+        cfg.kv_cache_dtype, or the hybrid and ssm decode state (O(1) in
+        seq_len) with its float32 and int32 leaves and the rest in
+        bfloat16, unless `dtype` is given."""
+        cfg, fam, m = self.cfg, self.cfg.family, self._m
+        if fam in ("hybrid", "ssm"):
+            return m.state_spec(cfg, batch,
+                                torch.bfloat16 if dtype is None else dtype)
+        if dtype is None:
+            dtype = getattr(torch, cfg.kv_cache_dtype)
+        if fam == "encdec":
+            return m.cache_spec(cfg, batch, seq_len, cfg.encdec.n_frames,
+                                dtype)
+        return m.cache_spec(cfg, batch, seq_len, dtype)

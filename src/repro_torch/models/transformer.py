@@ -1,14 +1,18 @@
-"""Decoder-only transformer: the dense family (GQA/MQA, qk-norm,
-GeGLU/SwiGLU/squared-ReLU MLPs), the counterpart of
+"""Decoder-only transformer: the dense and MoE families (GQA/MQA, qk-norm,
+GeGLU/SwiGLU/squared-ReLU MLPs, MLA attention for deepseek-v2, the MoE
+FFN of `models/moe.py` for dbrx and deepseek-v2), the counterpart of
 `repro/models/transformer.py`.
 
 The stacked layer params (layer axis first) are walked with a Python loop
 over the leading axis in place of `lax.scan`. Weights stay in the param
 dtype and are cast to the compute dtype at each use, as in the reference.
-MLA attention and the MoE FFN are not ported yet and raise. `loss_fn` is
-what the train step (`train/trainer.py`) differentiates; with
-`cfg.remat`, each layer runs under activation checkpointing while grad is
-enabled, as the reference wraps its scan body in `jax.checkpoint`.
+MLA's prefill expands the latent to per-head keys and values and takes the
+plain attention path whatever `attn_impl` says (the reference passes it no
+`impl`, and its value head dim differs from its key's); its decode scores
+in the latent space. `loss_fn` is what the train step
+(`train/trainer.py`) differentiates; with `cfg.remat`, each layer runs
+under activation checkpointing while grad is enabled, as the reference
+wraps its scan body in `jax.checkpoint`.
 """
 from __future__ import annotations
 
@@ -21,22 +25,33 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.common.config import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.context import MeshCtx
+from repro_torch.models.moe import moe_ffn
 from repro_torch.models.params import pdef
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item 10, remaining "
-        "families)")
 
 
 # ---------------------------------------------------------------------------
 # Parameter definitions
 
 def _attn_defs(cfg: ModelConfig, n: int) -> Dict[str, Any]:
-    if cfg.mla is not None:
-        raise _not_ported("MLA attention")
     d = cfg.d_model
+    if cfg.mla is not None:
+        m = cfg.mla
+        qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+        return {
+            "w_dq": pdef((n, d, m.q_lora_rank), (None, "fsdp", None)),
+            "q_ln": pdef((n, m.q_lora_rank), (None, None), "ones"),
+            "w_uq": pdef((n, m.q_lora_rank, cfg.n_heads, qk_dim),
+                         (None, None, "heads", None)),
+            "w_dkv": pdef((n, d, m.kv_lora_rank), (None, "fsdp", None)),
+            "kv_ln": pdef((n, m.kv_lora_rank), (None, None), "ones"),
+            "w_kr": pdef((n, d, m.qk_rope_head_dim), (None, "fsdp", None)),
+            "w_uk": pdef((n, m.kv_lora_rank, cfg.n_heads, m.qk_nope_head_dim),
+                         (None, None, "heads", None)),
+            "w_uv": pdef((n, m.kv_lora_rank, cfg.n_heads, m.v_head_dim),
+                         (None, None, "heads", None)),
+            "w_o": pdef((n, cfg.n_heads, m.v_head_dim, d),
+                        (None, "heads", None, "fsdp")),
+        }
     out: Dict[str, Any] = {
         "w_q": pdef((n, d, cfg.n_heads, cfg.head_dim), (None, "fsdp", "heads", None)),
         "w_k": pdef((n, d, cfg.n_kv_heads, cfg.head_dim), (None, "fsdp", "kv_heads", None)),
@@ -49,8 +64,9 @@ def _attn_defs(cfg: ModelConfig, n: int) -> Dict[str, Any]:
     return out
 
 
-def _mlp_defs(cfg: ModelConfig, n: int) -> Dict[str, Any]:
-    d, f = cfg.d_model, cfg.d_ff
+def _mlp_defs(cfg: ModelConfig, n: int,
+              d_ff: Optional[int] = None) -> Dict[str, Any]:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     if cfg.act in ("swiglu", "geglu"):
         return {
             "w_gate": pdef((n, d, f), (None, "fsdp", "mlp")),
@@ -63,15 +79,35 @@ def _mlp_defs(cfg: ModelConfig, n: int) -> Dict[str, Any]:
     }
 
 
+def _moe_defs(cfg: ModelConfig, n: int) -> Dict[str, Any]:
+    mc = cfg.moe
+    d, f, e = cfg.d_model, mc.d_ff_expert, mc.n_experts
+    defs: Dict[str, Any] = {
+        "router": pdef((n, d, e), (None, None, None), scale=0.02),
+    }
+    if cfg.act in ("swiglu", "geglu"):
+        defs["experts"] = {
+            "w_gate": pdef((n, e, d, f), (None, "experts", "fsdp", None)),
+            "w_up": pdef((n, e, d, f), (None, "experts", "fsdp", None)),
+            "w_down": pdef((n, e, f, d), (None, "experts", "fsdp", None)),
+        }
+    else:
+        defs["experts"] = {
+            "w_in": pdef((n, e, d, f), (None, "experts", "fsdp", None)),
+            "w_out": pdef((n, e, f, d), (None, "experts", "fsdp", None)),
+        }
+    if mc.n_shared:
+        defs["shared"] = _mlp_defs(cfg, n, d_ff=mc.n_shared * f)
+    return defs
+
+
 def param_defs(cfg: ModelConfig) -> Dict[str, Any]:
-    if cfg.family == "moe":
-        raise _not_ported("the MoE FFN")
     n, d = cfg.n_layers, cfg.d_model
     block: Dict[str, Any] = {
         "ln_attn": pdef((n, d), (None, None), "ones"),
         "ln_mlp": pdef((n, d), (None, None), "ones"),
         "attn": _attn_defs(cfg, n),
-        "mlp": _mlp_defs(cfg, n),
+        "mlp": _moe_defs(cfg, n) if cfg.family == "moe" else _mlp_defs(cfg, n),
     }
     defs = {
         "embed": pdef((cfg.vocab, d), ("vocab", "fsdp"), "embed"),
@@ -142,7 +178,65 @@ def _gqa(x, p, cfg: ModelConfig, positions, *, cache=None, pos=None,
 
 
 def _mla(x, p, cfg: ModelConfig, positions, *, cache=None, pos=None):
-    raise _not_ported("MLA attention")
+    """Multi-head Latent Attention. The cache keeps only the latent (ckv)
+    and the shared rotary key (krope).
+
+    Prefill/train: per-head k and v expanded from the latent (the naive
+    path), through the plain attention. Decode: the weight-absorbed path,
+    scores and values in the latent space, scores in float32. Decode
+    writes into the cache in place, as `_gqa` does."""
+    m = cfg.mla
+    cdt = x.dtype
+    B, T, _ = x.shape
+    H = cfg.n_heads
+    nope, rope = m.qk_nope_head_dim, m.qk_rope_head_dim
+    scale = 1.0 / math.sqrt(nope + rope)
+
+    cq = L.rms_norm(x @ p["w_dq"].to(cdt), p["q_ln"], cfg.rms_eps)
+    q = _proj(cq, p["w_uq"])
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    ckv = L.rms_norm(x @ p["w_dkv"].to(cdt), p["kv_ln"], cfg.rms_eps)
+    krope = x @ p["w_kr"].to(cdt)
+
+    cos, sin = L.rope_freqs(positions, rope, cfg.rope_theta)
+    q_rope = L.apply_rope(q_rope, cos, sin)
+    krope = L.apply_rope(krope[:, :, None, :], cos, sin)[:, :, 0, :]
+
+    if cache is None:
+        k_nope = _proj(ckv, p["w_uk"])
+        val = _proj(ckv, p["w_uv"])
+        k_full = torch.cat([k_nope, krope[:, :, None, :].expand(B, T, H, rope)],
+                           dim=-1)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        out = L.attention(q_full, k_full, val,
+                          q_positions=positions, kv_positions=positions,
+                          causal=True, softmax_scale=scale)
+        new_cache = {"ckv": ckv, "krope": krope}
+    else:
+        ckv_c, kr_c = cache["ckv"], cache["krope"]
+        rows = torch.arange(B, device=x.device)
+        ckv_c[rows, pos] = ckv[:, 0].to(ckv_c.dtype)
+        kr_c[rows, pos] = krope[:, 0].to(kr_c.dtype)
+        ckv_d = ckv_c.to(cdt)
+        # q' = q_nope . W_uk: the query in the latent space
+        q_lat = torch.einsum("bthn,khn->bthk", q_nope, p["w_uk"].to(cdt))
+        # products of the compute dtype summed in float32 (the reference's
+        # preferred_element_type)
+        s = (torch.einsum("bthk,bsk->bhts", q_lat.float(), ckv_d.float())
+             + torch.einsum("bthr,bsr->bhts", q_rope.float(),
+                            kr_c.to(cdt).float())) * scale
+        S = ckv_c.shape[1]
+        valid = (torch.arange(S, device=x.device)[None, :]
+                 < (pos + 1)[:, None])                              # (B,S)
+        s = torch.where(valid[:, None, None, :], s,
+                        torch.tensor(-1e30, dtype=s.dtype, device=s.device))
+        w = torch.softmax(s, dim=-1).to(cdt)
+        ctx = torch.einsum("bhts,bsk->bthk", w, ckv_d)
+        out = torch.einsum("bthk,khv->bthv", ctx, p["w_uv"].to(cdt))
+        new_cache = {"ckv": ckv_c, "krope": kr_c}
+    Hv, hv, d = p["w_o"].shape
+    out = out.reshape(B, T, Hv * hv) @ p["w_o"].reshape(Hv * hv, d).to(cdt)
+    return out, new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -150,7 +244,7 @@ def _mla(x, p, cfg: ModelConfig, positions, *, cache=None, pos=None):
 
 def _ffn(x, p, cfg: ModelConfig, mctx: MeshCtx):
     if cfg.family == "moe":
-        raise _not_ported("the MoE FFN")
+        return moe_ffn(x, p, cfg, mctx)
     cdt = x.dtype
     return L.mlp(x, {k: v.to(cdt) for k, v in p.items()}, cfg.act)
 
@@ -235,12 +329,18 @@ class CacheSpec(NamedTuple):
 
 def cache_spec(cfg: ModelConfig, batch: int, max_len: int,
                dtype: Optional[torch.dtype] = None):
-    """Specs of the stacked decode cache (L, B, S, KH, Dh)."""
-    if cfg.mla is not None:
-        raise _not_ported("MLA attention")
+    """Specs of the stacked decode cache: (L, B, S, KH, Dh) keys and
+    values, or MLA's latent (L, B, S, kv_lora_rank) and rotary key (L, B,
+    S, qk_rope_head_dim)."""
     if dtype is None:
         dtype = getattr(torch, cfg.kv_cache_dtype)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    n = cfg.n_layers
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {"ckv": CacheSpec((n, batch, max_len, m.kv_lora_rank), dtype),
+                "krope": CacheSpec((n, batch, max_len, m.qk_rope_head_dim),
+                                   dtype)}
+    shape = (n, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return {"k": CacheSpec(shape, dtype), "v": CacheSpec(shape, dtype)}
 
 

@@ -4,8 +4,9 @@ int8 gradient round trip, the counterpart of `make_train_step` in
 
 Gradients come from autograd over `api.loss` with the params as leaf
 tensors. The reference's `jit_*` wiring (shardings, donation) waits for
-the multi-device slice (ROADMAP Queue 1 item 11); on one device the step
-runs eagerly and `adamw_update` updates params and moments in place.
+the multi-device slice (ROADMAP Queue 1, "Multi-device"); on one device
+the step runs eagerly and `adamw_update` updates params and moments in
+place.
 """
 from __future__ import annotations
 

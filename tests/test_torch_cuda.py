@@ -3,9 +3,12 @@ versions, device-direct placement into GPU memory, the EC path's parity
 legs through rs_matmul, a small model's prefill through
 flash_attention_fwd and its train step through flash_attention_bwd, and
 the RG-LRU and RWKV6 scans (rglru_scan forward and reverse, wkv6) with
-the small hybrid and ssm models that serve through them, and the storage
+the small hybrid and ssm models that serve through them, the storage
 path's stream cipher and Fletcher checksum (bit-exact with their plain
-versions, the inline crypto and the engine checksum).
+versions, the inline crypto and the engine checksum), and the moe, vlm
+and encdec families: the flash forward at head_dim 128 in the GQA groups
+of dbrx and llama-3.2-vision, `moe_ffn` with drops and the float8
+dispatch cast on the card against the CPU port.
 Every test here needs a card and skips
 without one; on the card run them with
 
@@ -276,6 +279,72 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
         FKB.flash_attention_bwd(h, h, h, h, lse, lse, scale=1.0)
     with pytest.raises(ValueError):                     # bf16 lse
         FKB.flash_attention_bwd(q, q, q, q, lse.bfloat16(), lse, scale=1.0)
+
+
+@pytest.mark.parametrize("T", [200, 1024])
+@pytest.mark.parametrize("H,KH", [(48, 8), (64, 8)])
+def test_flash_kernel_at_head_dim_128_in_groups_of_6_and_8(cuda_device, H,
+                                                           KH, T):
+    """dbrx's (48 heads over 8) and llama-3.2-vision's (64 over 8) prefill
+    attention at head_dim 128, bf16 and causal, against the plain version
+    at the reference's 2e-2; T = 1024 is their serve prompt."""
+    gen = torch.Generator(device=cuda_device).manual_seed(H + T)
+    q, k, v = (torch.randn(2, T, h, 128, generator=gen, device=cuda_device)
+               .bfloat16() for h in (H, KH, KH))
+    before = fops.launches()["fwd"]
+    out, lse = fops.flash_attention(q, k, v, return_lse=True)
+    assert fops.launches()["fwd"] == before + 1
+    want, want_lse = fref.attention_ref(q, k, v, return_lse=True)
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse, want_lse, atol=2e-2, rtol=2e-2)
+
+
+def test_moe_ffn_on_card_matches_the_cpu_port_with_drops(cuda_device):
+    """Float32, 8 experts top-2 with most tokens sent to expert 0, so the
+    second level drops past cap2: the card's output equals the CPU's to
+    1e-5, and no out-of-bounds scatter asserts on the device."""
+    import dataclasses
+    from repro_torch.configs import tiny_config
+    from repro_torch.models import moe
+    from repro_torch.models.context import single_device_ctx
+    cfg = tiny_config("dbrx-132b")
+    cfg = cfg.replace(moe=dataclasses.replace(
+        cfg.moe, n_experts=8, dispatch_dtype="float32"))
+    E, D, F = 8, cfg.d_model, cfg.moe.d_ff_expert
+    gen = torch.Generator().manual_seed(0)
+    x = 1.0 + 0.3 * torch.randn(2, 48, D, generator=gen)
+    router = 0.05 * torch.randn(D, E, generator=gen)
+    router[:, 0] += 0.5
+    p = {"router": router,
+         "experts": {k: torch.randn(E, *s, generator=gen) / 8 for k, s in
+                     (("w_gate", (D, F)), ("w_up", (D, F)),
+                      ("w_down", (F, D)))}}
+    want = moe.moe_ffn(x, p, cfg, single_device_ctx(cfg, device="cpu"))
+    on_card = {"router": router.cuda(),
+               "experts": {k: w.cuda() for k, w in p["experts"].items()}}
+    got = moe.moe_ffn(x.cuda(), on_card, cfg, single_device_ctx(cfg))
+    torch.cuda.synchronize()
+    assert (x @ router).argmax(-1).eq(0).float().mean() > 0.9
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+
+
+def test_fp8_dispatch_cast_on_card_is_the_cpu_one(cuda_device):
+    """The reference's float8_e4m3fn rule (NaN above 464 and for ±inf,
+    keeping the sign; saturation nowhere) gives the same bits on the card
+    as on the CPU, from float32 and from bfloat16."""
+    from repro_torch.models import moe
+    edges = torch.tensor([448.0, -448.0, 463.99, 464.0, -464.0, 464.01,
+                          -466.0, 480.0, 1e4, float("inf"), float("-inf"),
+                          float("nan"), 0.0, -0.0, 2.0 ** -9, 2.0 ** -10,
+                          1e-30])
+    x = torch.cat([edges, 300 * torch.randn(
+        1 << 16, generator=torch.Generator().manual_seed(1))])
+    for src in (x, x.bfloat16()):
+        cpu = moe.to_dispatch(src, torch.float8_e4m3fn).view(torch.uint8)
+        card = moe.to_dispatch(src.cuda(), torch.float8_e4m3fn)
+        assert torch.equal(card.view(torch.uint8).cpu(), cpu)
+        assert torch.isnan(card[6:12].float()).all()
 
 
 def test_small_model_prefill_through_the_kernel(cuda_device):

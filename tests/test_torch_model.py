@@ -15,17 +15,21 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from repro.configs import ARCHS as REF_ARCHS
 from repro.configs import tiny_config as ref_tiny_config
 from repro.models.api import ModelAPI as RefAPI
 from repro.models.context import single_device_ctx as ref_ctx
 from repro.models.params import count_params as ref_count_params
 from repro.models.params import init_params as ref_init_params
 from repro_torch.configs import get_config, tiny_config
+from repro_torch.launch.serve import grow_cache
 from repro_torch.models import transformer
 from repro_torch.models.api import ModelAPI
 from repro_torch.models.context import single_device_ctx
 from repro_torch.models.params import (count_params, init_params,
                                        params_from_numpy, params_to_numpy)
+
+from _torch_parity import ref_grow_cache
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 ARCHS = ["granite-3-2b", "gemma-7b", "qwen3-14b", "nemotron-4-15b"]
@@ -50,7 +54,6 @@ def _tokens(seed, shape, vocab):
 
 
 def test_configs_are_the_references():
-    from repro.configs import ARCHS as REF_ARCHS
     from repro.configs import get_config as ref_get_config
     for name in REF_ARCHS + ("dense-100m",):
         assert repr(get_config(name)) == repr(ref_get_config(name))
@@ -120,11 +123,9 @@ def test_three_decode_steps_match(name, impl):
     toks = _tokens(3, (B, T), api.cfg.vocab)
     grow = 8
     _, cache = api.prefill(params, {"tokens": toks}, ctx)
-    cache = {k: torch.nn.functional.pad(x, (0, 0, 0, 0, 0, grow))
-             for k, x in cache.items()}
+    cache = grow_cache(cache, "dense", grow)
     _, ref_cache = rapi.prefill(rparams, {"tokens": jnp.asarray(toks)}, rctx)
-    ref_cache = {k: jnp.pad(x, [(0, 0), (0, 0), (0, grow), (0, 0), (0, 0)])
-                 for k, x in ref_cache.items()}
+    ref_cache = ref_grow_cache(ref_cache, "dense", grow)
     spec = api.cache_specs(B, T + grow, torch.float32)
     assert spec["k"].shape == tuple(cache["k"].shape)
     for i in range(3):
@@ -162,13 +163,35 @@ def test_params_round_trip_in_bfloat16():
     assert as_f32["ln_f"].dtype == torch.float32
 
 
-def test_unported_families_raise_and_name_the_roadmap_item():
-    for name in ("dbrx-132b", "llama-3.2-vision-90b", "whisper-tiny"):
-        api = ModelAPI(tiny_config(name), device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            api.param_defs()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.param_defs(tiny_config("deepseek-v2-236b"))
+@pytest.mark.parametrize("name", REF_ARCHS)
+def test_every_arch_builds_prefills_and_decodes(name):
+    """ModelAPI(tiny_config(name), device="cpu") for each of the ten
+    assigned archs: params from its defs, a prefill with the family's
+    extra inputs, one decode step on the cache its prefill made, grown on
+    the sequence axis as tests/test_smoke_archs.py grows it; finite logits
+    of the vocabulary's width."""
+    cfg = tiny_config(name)
+    api = ModelAPI(cfg, device="cpu")
+    ctx = single_device_ctx(cfg, device="cpu")
+    params = init_params(api.param_defs(), torch.Generator().manual_seed(0),
+                         device="cpu")
+    inputs = {"tokens": _tokens(0, (B, T), cfg.vocab)}
+    rng = np.random.default_rng(0)
+    if cfg.family == "vlm":
+        inputs["vision_embeds"] = rng.standard_normal(
+            (B, cfg.vlm.n_vision_tokens, cfg.vlm.d_vision), np.float32)
+    if cfg.family == "encdec":
+        inputs["frames"] = rng.standard_normal(
+            (B, cfg.encdec.n_frames, cfg.d_model), np.float32)
+    with torch.no_grad():
+        logits, cache = api.prefill(params, inputs, ctx)
+        assert tuple(logits.shape) == (B, cfg.vocab)
+        cache = grow_cache(cache, cfg.family, 4)
+        logits, _ = api.decode(params, {"token": logits.argmax(-1).int(),
+                                        "pos": np.full((B,), T, np.int32)},
+                               cache, ctx)
+    assert tuple(logits.shape) == (B, cfg.vocab)
+    assert bool(torch.isfinite(logits).all())
 
 
 def test_model_api_defaults_to_the_card():

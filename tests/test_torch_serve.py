@@ -1,6 +1,6 @@
 """The port's serving engine against the reference's (tests/test_serve.py):
-the same params and prompts give the same greedy tokens (dense, hybrid
-and ssm families); partial waves exit early; prompts round-trip through
+the same params and prompts give the same greedy tokens (dense, moe,
+hybrid and ssm families); partial waves exit early; prompts round-trip through
 the port's store on the CPU."""
 import numpy as np
 import pytest
@@ -82,6 +82,25 @@ def test_recurrent_families_give_the_reference_engines_tokens(name, impl):
         ref_eng.steps, ref_eng.active_slot_steps)
 
 
+@pytest.mark.parametrize("impl", ["jnp", "flash"])
+@pytest.mark.parametrize("name", ["dbrx-132b", "deepseek-v2-236b"])
+def test_moe_family_gives_the_reference_engines_tokens(name, impl):
+    """A partial wave of the moe family (GQA k/v caches for dbrx, MLA's
+    latent and rotary-key caches for deepseek-v2) through both engines'
+    prefill, _pad_cache and decode: every greedy token is the
+    reference's."""
+    ref_eng, eng = _engines(name, impl)
+    p0, p1 = _prompts(3, 2, eng.api.cfg.vocab)
+    reqs = [Request(0, p0, MAXNEW), Request(1, p1, 4)]
+    ref_reqs = [RefRequest(0, p0, MAXNEW), RefRequest(1, p1, 4)]
+    eng.run_wave(reqs)
+    ref_eng.run_wave(ref_reqs)
+    assert [len(r.out) for r in reqs] == [MAXNEW, 4]
+    assert [r.out for r in reqs] == [r.out for r in ref_reqs]
+    assert (eng.steps, eng.active_slot_steps) == (
+        ref_eng.steps, ref_eng.active_slot_steps)
+
+
 def test_partial_wave_and_early_exit():
     ref_eng, eng = _engines()
     p0, p1 = _prompts(1, 2, eng.api.cfg.vocab)
@@ -109,6 +128,29 @@ def test_pad_cache_grows_the_sequence_axis_when_prompt_len_equals_layers():
     assert tuple(grown.shape) == (n_layers, BATCH, n_layers + 5, 2, 16)
     assert torch.equal(grown[:, :, :n_layers], cache["k"])
     assert not grown[:, :, n_layers:].any()
+
+
+def test_pad_cache_grows_mla_caches_by_position():
+    """MLA's (L,B,S,r) latent and (L,B,S,rope) rotary-key caches grow on
+    axis 2. Where the prompt length equals the layer count the reference
+    pads the first axis of that size, the layer axis, and the port still
+    pads the sequence axis."""
+    ref_eng, eng = _engines("deepseek-v2-236b")
+    cfg = eng.api.cfg
+    n, m = cfg.n_layers, cfg.mla
+    for e in (eng, ref_eng):
+        e.prompt_len, e.max_seq = n, n + 5
+    shapes = {"ckv": (n, BATCH, n, m.kv_lora_rank),
+              "krope": (n, BATCH, n, m.qk_rope_head_dim)}
+    cache = {k: torch.ones(s) for k, s in shapes.items()}
+    grown = eng._pad_cache(cache)
+    ref_grown = ref_eng._pad_cache({k: np.ones(s, np.float32)
+                                    for k, s in shapes.items()})
+    for key, (L, B, S, r) in shapes.items():
+        assert tuple(grown[key].shape) == (L, B, S + 5, r)
+        assert torch.equal(grown[key][:, :, :S], cache[key])
+        assert not grown[key][:, :, S:].any()
+        assert ref_grown[key].shape == (L + 5, B, S, r)
 
 
 def test_prompts_roundtrip_through_store():
