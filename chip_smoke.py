@@ -88,7 +88,14 @@ result):
                d_model 2048, vocab 49155) with attn_impl="flash", params
                from a seed on the card, 8 prompts of 1024 tokens written to
                and read back from the store (dpu mode, rdma), batched
-               prefill and decode in waves of 4, up to 32 new tokens each;
+               prefill and decode in waves of 4, up to 32 new tokens each,
+               through the engine's compiled steps: prefill and decode
+               captured as CUDA graphs in a warm-up wave, then replayed
+               (every serve phase below does the same, and times and
+               traces one replay of each graph); the same requests then go
+               through the engine's eager steps (greedy tokens compared),
+               and one wave from the same state through both (logits and
+               cache bit for bit, or else within the phase's tolerance);
                one wave's prefill is held against the plain attention path
                on the same params: every layer's attention on its own
                inputs (bf16, 2e-2), the whole model at full width in
@@ -155,11 +162,17 @@ result):
                with attn_impl="flash", float32 params computing in bf16
                from a seed, a synthetic corpus written to a dpu-mode RDMA
                store and streamed back by the loader (prefetch 2, hedged
-               reads), 30 AdamW steps of 8 x 256 tokens in 2 microbatches,
-               a checkpoint every 10 steps, a storage device killed at
-               step 15 once the checkpoint of step 10 has landed; every
-               batch must equal its corpus slice and the
-               step-30 checkpoint restore bit for bit; one step is traced;
+               reads), 30 AdamW steps of 8 x 256 tokens in 2 microbatches
+               through jit_train_step (the first step captures it, the
+               others replay), a checkpoint every 10 steps, a storage
+               device killed at step 15 once the checkpoint of step 10 has
+               landed; every batch must equal its corpus slice and the
+               step-30 checkpoint restore bit for bit; the captured step
+               against the eager step from the same state (bit for bit, or
+               else within the train tests' tolerances), both timed and
+               traced; the step-10 checkpoint restored into the captured
+               step's tensors (launch/train.py --resume) and steps 11-15
+               held against the uninterrupted run;
                the same model cut to 2 layers in float32 takes one step on
                both attention paths (loss to 1e-4, gradients to atol 2e-4 /
                rtol 2e-3), and cut to 2 layers in bf16 it trains on the
@@ -173,12 +186,18 @@ Each kernel's launch counts are zeroed just before the path that drives it
 placed stream; flash_attention_fwd: each of the granite, dbrx and VLM
 serve phases, and its launches are their sum; rglru_scan and wkv6: their
 serve phases; flash_attention_bwd: the train phase) and read just after
-it. The line before the last is a JSON object of the kernels
-(launches, error, times, bound); the last line is the result object.
+it. A wrapper counts the launches it makes itself; a call captured into a
+CUDA graph launches nothing, and each replay of the graph launches what
+the capture recorded, so on the compiled paths a kernel's launches are
+the wrapper's count plus its kernels in each graph (from traced
+replays) times the graph's replays in the run. The line before the last
+is a JSON object of the kernels (launches, error, times, bound); the last
+line is the result object.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import itertools
 import json
 import subprocess
@@ -717,6 +736,7 @@ D128_SHAPES = {  # arch -> its prefill wave's attention: B, T=S, H, KH, D
 }
 # tests/test_kernels.py:56, the reference's own tolerances
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+FLASH_FLOOR_T = 16              # one CTA of each flash kernel
 
 
 def flash_bound(B: int, T: int, H: int, KH: int, D: int, elem: int) -> dict:
@@ -779,8 +799,19 @@ def flash_phase(seed: int) -> dict:
     times = _flash_times(SERVE_SHAPE, gen)
     d128 = {arch: _flash_times(shape, gen)
             for arch, shape in D128_SHAPES.items()}
+    # the launch floor: one CTA (B = H = KH = 1, T = S = 16, bf16)
+    q1, k1, v1 = (torch.randn(1, FLASH_FLOOR_T, 1, 64, generator=gen,
+                              device="cuda").bfloat16() for _ in range(3))
+    floor_ms = kernel_device_ms(lambda: K.flash_attention_fwd(
+        q1, k1, v1, scale=0.125, causal=True), 100, K.KERNEL_NAME)
+    floor_call_ms = cuda_ms(lambda: K.flash_attention_fwd(
+        q1, k1, v1, scale=0.125, causal=True), 200)
+    print(f"flash_attention_fwd launch floor (one CTA: B=H=KH=1, "
+          f"T=S={FLASH_FLOOR_T}, D=64, bf16): kernel {floor_ms:.6f} ms on "
+          f"the device, {floor_call_ms:.6f} ms a call")
     return {"max_abs_err": max(worst.values()), "max_abs_err_by_dtype": worst,
-            "max_abs_err_at_d128_prefill": at_prefill, **times, "d128": d128}
+            "max_abs_err_at_d128_prefill": at_prefill, **times, "d128": d128,
+            "floor_ms": floor_ms, "floor_call_ms": floor_call_ms}
 
 
 def _flash_times(shape: tuple, gen) -> dict:
@@ -966,8 +997,21 @@ def flash_bwd_phase(seed: int) -> dict:
               f"{bound['bytes']} B / {HBM_BYTES_PER_S:.3g} B/s = "
               f"{bound['bytes_ms']:.6f} ms")
         del q, k, v, dout, out, lse, delta, qt, kt, vt, lib_out, lib, mine
+    # the launch floor: one CTA of each of the two kernels
+    q, k, v, dout = inputs(1, FLASH_FLOOR_T, 1, 1, 64, torch.bfloat16)
+    out, lse = ops.flash_attention(q, k, v, return_lse=True)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    floor_ms = kernel_device_ms(lambda: KB.flash_attention_bwd(
+        q, k, v, dout, lse, delta, scale=0.125), 100, KB.KERNEL_NAME,
+        per_call=KB.KERNELS_PER_CALL)
+    floor_call_ms = cuda_ms(lambda: KB.flash_attention_bwd(
+        q, k, v, dout, lse, delta, scale=0.125), 200)
+    print(f"flash_attention_bwd launch floor (one CTA a kernel: B=H=KH=1, "
+          f"T=S={FLASH_FLOOR_T}, D=64, bf16): both kernels {floor_ms:.6f} ms "
+          f"on the device, {floor_call_ms:.6f} ms a call")
     return {"max_abs_err": max(worst.values()),
-            "max_abs_err_by_dtype": worst, "shapes": shapes}
+            "max_abs_err_by_dtype": worst, "shapes": shapes,
+            "floor_ms": floor_ms, "floor_call_ms": floor_call_ms}
 
 
 # -- phase 3, continued: the RG-LRU and RWKV6 scans against their plain versions
@@ -1192,8 +1236,20 @@ def scan_phase(seed: int) -> dict:
     call_ms = cuda_ms(lambda: wops.wkv6(*xs), 20)
     plain_ms = cuda_ms(lambda: wref.wkv_plain(*xs), 5)
     bound = wkv_bound(B, T, H, hd, s0=False)
+    # the launch floor: one CTA of each kernel (one 16-row strip of one
+    # head, one chunk)
+    f1 = (randn(1, 1, 1, 16), randn(1, 1, 1, 16), randn(1, 1, 1, 16),
+          torch.exp(-torch.exp(randn(1, 1, 1, 16))), randn(1, 16))
+    wkv_floor_ms = kernel_device_ms(lambda: WK.wkv6(*f1), 100,
+                                    WK.KERNEL_NAME,
+                                    per_call=WK.KERNELS_PER_CALL)
+    wkv_floor_call_ms = cuda_ms(lambda: WK.wkv6(*f1), 200)
+    print(f"wkv6 launch floor (one CTA a kernel: B=T=H=1, hd=16): both "
+          f"kernels {wkv_floor_ms:.6f} ms on the device, "
+          f"{wkv_floor_call_ms:.6f} ms a call")
     wkv = {"shape": {"B": B, "T": T, "H": H, "hd": hd}, "ms": ms,
            "kernel_ms": kernel_ms, "call_ms": call_ms, "plain_ms": plain_ms,
+           "floor_ms": wkv_floor_ms, "floor_call_ms": wkv_floor_call_ms,
            **bound}
     print(f"wkv6 at the prefill shape (B={B}, T={T}, H={H}, hd={hd}): "
           + ", ".join(f"{name} {t:.6f} ms" for name, t in kernel_ms.items())
@@ -1559,25 +1615,101 @@ def first_layers(tree: dict, n: int) -> dict:
             for k, v in tree.items()}
 
 
+COMPILED = ("prefill", "decode")   # the engine's captured steps
+KERNEL_KIND = {  # a path kernel -> its kind in KERNEL_KINDS, kernels a call
+    "flash_attention_fwd": ("flash fwd", 1), "rglru_scan": ("rglru scan", 1),
+    "wkv6": ("wkv scan", 2), "flash_attention_bwd": ("flash bwd", 2)}
+
+
+def graph_kernels(replay) -> tuple:
+    """(one traced call of `replay`, a captured graph's replay: wall time,
+    busy time, idle share and device operations by kind; the kernels of
+    each kind in the graph, the most TRACE_ATTEMPTS traces of it showed,
+    since the profiler only ever loses records)."""
+    first, most = None, {}
+    for _ in range(TRACE_ATTEMPTS):
+        trace = device_breakdown(replay)
+        first = first or trace
+        for kind, n in trace["device_ops_by_kind"].items():
+            most[kind] = max(most.get(kind, 0), n)
+    return first, most
+
+
+def _zero_stats(eng) -> None:
+    """An engine's counts and times back to 0 after its warm-up wave."""
+    eng.steps = eng.slot_steps = eng.active_slot_steps = 0
+    eng.prefill_s = eng.decode_s = 0.0
+    eng.prefill_step.calls = eng.decode_step.calls = 0
+
+
+def _run_waves(eng, reqs) -> float:
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(0, len(reqs), SERVE_BATCH):
+        eng.run_wave(reqs[i:i + SERVE_BATCH])
+    return time.perf_counter() - t0
+
+
+def _one_wave(eng, wave: list) -> list:
+    """A wave of a prefill and one decode step of `wave`'s prompts through
+    `eng`: copies of the prefill's and the decode step's logits and of the
+    decode cache after it, as (name, tensor) pairs."""
+    import torch
+    from repro_torch.launch.serve import Request
+    from repro_torch.train.trainer import map_tree
+    eng.run_wave([Request(r.rid, r.prompt, 2) for r in wave])
+    out = [("prefill logits", eng.logits["prefill"].clone()),
+           ("decode logits", eng.logits["decode"].clone())]
+    map_tree(lambda t: out.append(("cache", t.clone())), eng.cache)
+    torch.cuda.synchronize()
+    return out
+
+
+def _same_state(captured: list, eager: list, tol: float, label: str) -> dict:
+    """`_one_wave` through the engine's captured steps against its eager
+    steps from the same params and prompts: bit for bit, or else within
+    `tol` (the difference printed)."""
+    import torch
+    out, identical = {}, True
+    for (name, a), (_, b) in zip(captured, eager, strict=True):
+        err, ok = in_tolerance(a, b, tol)
+        check(ok, f"{label}: captured {name} off the eager step's by {err}")
+        identical &= bool(torch.equal(a, b))
+        out[name] = max(out.get(name, 0.0), err)
+    print(f"{label}: captured prefill and decode vs the eager steps from the "
+          f"same state: {'bit for bit' if identical else 'not bit for bit'}"
+          f"; max abs difference {out} (held at {tol})")
+    return {"captured_vs_eager_identical": identical,
+            "captured_vs_eager_max_abs_diff": out}
+
+
 def _serve_from_store(api, params, mctx, vocab: int, seed: int, label: str,
                       reset, counts, plen: int = SERVE_PLEN,
-                      engine=None) -> tuple:
+                      engine=None, tol: float = 2e-2) -> tuple:
     """The serve phases' traffic: SERVE_REQUESTS prompts of `plen` tokens
     written to a dpu-mode RDMA store and read back, then served in waves of
     SERVE_BATCH, up to SERVE_MAX_NEW new tokens each, through BatchedEngine
-    (or `engine(max_seq)`, an engine like it) after a warm-up wave.
-    `reset()` sets the kernel counts to 0 just before the timed run and
-    `counts()` reads them (name -> launches) just after. Returns (requests,
-    engine, stats, launches)."""
+    (or `engine(max_seq, compiled)`, an engine like it) with its prefill
+    and decode captured as CUDA graphs, after a warm-up wave that captures
+    them. `reset()` sets the kernel counts to 0 just before the timed run
+    and `counts()` reads them (name -> wrapper launches) just after; a
+    kernel's launches are those plus its kernels in each captured graph
+    (traced replays) times the graph's replays in the run. The same
+    requests then go through the engine's eager steps (their greedy
+    tokens compared, printed), and one wave from the same state through
+    both (held at `tol`, `_same_state`), the captured engine freed before
+    the eager one runs. Returns (requests, eager engine, stats,
+    launches)."""
     import torch
     from repro_torch.core import ROS2Client
     from repro_torch.launch.serve import (BatchedEngine, Request,
                                           read_prompt, write_prompts)
 
     if engine is None:
-        def engine(max_seq):
+        def engine(max_seq, compiled):
             return BatchedEngine(api, params, mctx, SERVE_BATCH, plen,
-                                 max_seq)
+                                 max_seq, compiled=compiled)
     client = ROS2Client(mode="dpu", transport="rdma", scrub_interval_s=None)
     try:
         t0 = time.perf_counter()
@@ -1599,24 +1731,48 @@ def _serve_from_store(api, params, mctx, vocab: int, seed: int, label: str,
         client.close()
 
     max_seq = plen + SERVE_MAX_NEW + 8
-    eng = engine(max_seq)
-    # warm-up wave outside the counted run (cuBLAS handles, allocator)
-    eng.run_wave([Request(-1, reqs[0].prompt, 2)])
-    eng = engine(max_seq)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    eng = engine(max_seq, COMPILED)
+    # the warm-up wave outside the counted run captures both steps
+    eng.run_wave([Request(-1, reqs[0].prompt, 2)])
+    capture = {"prefill_s": eng.prefill_step.capture_s,
+               "decode_s": eng.decode_step.capture_s,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    _zero_stats(eng)
+    torch.cuda.synchronize()
     reset()
-    t0 = time.perf_counter()
-    waves = 0
-    for i in range(0, len(reqs), SERVE_BATCH):
-        eng.run_wave(reqs[i:i + SERVE_BATCH])
-        waves += 1
-    wall = time.perf_counter() - t0
-    launched = counts()
+    wall = _run_waves(eng, reqs)
+    wrapper = counts()
+    replays = {"prefill": eng.prefill_step.calls,
+               "decode": eng.decode_step.calls}
+    peak = torch.cuda.max_memory_allocated()
     new_tokens = sum(len(r.out) for r in reqs)
     check(all(r.done for r in reqs), "a request did not finish")
     check(all(0 <= t < vocab for r in reqs for t in r.out),
           "a token outside the vocabulary")
+    check(replays == {"prefill": len(reqs) // SERVE_BATCH,
+                      "decode": eng.steps},
+          f"{label}: {replays} replays for {eng.steps} decode steps")
+    waves = replays["prefill"]
+    # what each graph holds, and one traced replay of each
+    with torch.inference_mode():
+        pre_trace, pre_kernels = graph_kernels(
+            lambda: eng.prefill_step(params, eng.prefill_step.buffers[
+                "inputs"]))
+        dec_trace, dec_kernels = graph_kernels(
+            lambda: eng.decode_step(params))
+    launched, by_graph = {}, {}
+    for name, n in wrapper.items():
+        kind, per_call = KERNEL_KIND[name]
+        in_graphs = (pre_kernels.get(kind, 0) * replays["prefill"]
+                     + dec_kernels.get(kind, 0) * replays["decode"])
+        check(in_graphs % per_call == 0, f"{name}: {in_graphs} kernels")
+        launched[name] = n + in_graphs // per_call
+        by_graph[name] = {"wrapper_launches": n,
+                          "prefill_graph_kernels": pre_kernels.get(kind, 0),
+                          "decode_graph_kernels": dec_kernels.get(kind, 0),
+                          "replays": replays}
     occ = eng.active_slot_steps / max(eng.slot_steps, 1)
     stats = {"requests": len(reqs), "waves": waves,
              "prompt_tokens": plen * len(reqs),
@@ -1624,15 +1780,64 @@ def _serve_from_store(api, params, mctx, vocab: int, seed: int, label: str,
              "wall_s": wall, "tokens_per_s": new_tokens / wall,
              "slot_occupancy": occ, "prefill_s": eng.prefill_s,
              "decode_s": eng.decode_s, "decode_steps": eng.steps,
-             "dpu_ops": dpu_ops,
-             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+             "prefill_s_per_wave": eng.prefill_s / waves,
+             "decode_ms_per_step": 1e3 * eng.decode_s / eng.steps,
+             "dpu_ops": dpu_ops, "capture": capture,
+             "trace_prefill_replay": pre_trace,
+             "trace_decode_replay": dec_trace,
+             "launches_by_graph": by_graph,
+             "peak_mem_gb": peak / 1e9}
     print(f"[{label}] {len(reqs)} requests of {plen} prompt tokens in "
-          f"{waves} waves: {new_tokens} new tokens, "
+          f"{waves} waves, captured steps: {new_tokens} new tokens, "
           f"{new_tokens / wall:.3f} tok/s, slot occupancy {100 * occ:.1f}%, "
-          f"prefill {eng.prefill_s:.3f} s, decode {eng.decode_s:.3f} s over "
-          f"{eng.steps} steps, " + ", ".join(
-              f"{k} launches {v}" for k, v in launched.items()))
-    return reqs, eng, stats, launched
+          f"prefill {eng.prefill_s / waves:.6f} s a wave, decode "
+          f"{stats['decode_ms_per_step']:.6f} ms a step over {eng.steps} "
+          f"steps; capture {capture['prefill_s']:.3f} s (prefill) + "
+          f"{capture['decode_s']:.3f} s (decode), peak "
+          f"{peak / 1e9:.3f} GB; " + ", ".join(
+              f"{k} launches {v} ({wrapper[k]} by the wrapper, "
+              f"{by_graph[k]['prefill_graph_kernels']} kernels in the "
+              f"prefill graph x {replays['prefill']} replays + "
+              f"{by_graph[k]['decode_graph_kernels']} in the decode graph "
+              f"x {replays['decode']})" for k, v in launched.items()))
+    print(f"[{label}] a traced prefill replay: wall "
+          f"{pre_trace['wall_s']:.6f} s, busy "
+          f"{pre_trace['device_busy_s']:.6f} s, idle "
+          f"{pre_trace['idle_share']:.4f}; a traced decode replay: wall "
+          f"{1e3 * dec_trace['wall_s']:.6f} ms, busy "
+          f"{1e3 * dec_trace['device_busy_s']:.6f} ms, idle "
+          f"{dec_trace['idle_share']:.4f}, {dec_trace['device_ops']} device "
+          "operations")
+
+    # one wave from a state the eager steps will start from too; then the
+    # graphs' pool goes back to the card before the eager steps run (dbrx's
+    # would not fit beside an eager prefill)
+    captured = _one_wave(eng, reqs[:SERVE_BATCH])
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same requests through the eager steps: their times and tokens
+    eager = engine(max_seq, ())
+    eager.run_wave([Request(-1, reqs[0].prompt, 2)])
+    _zero_stats(eager)
+    ereqs = [Request(r.rid, r.prompt, r.max_new) for r in reqs]
+    ewall = _run_waves(eager, ereqs)
+    same = sum(a == b for r, e in zip(reqs, ereqs)
+               for a, b in zip(r.out, e.out))
+    stats.update({"eager_wall_s": ewall,
+                  "eager_tokens_per_s": new_tokens / ewall,
+                  "eager_prefill_s_per_wave": eager.prefill_s / waves,
+                  "eager_decode_ms_per_step": 1e3 * eager.decode_s
+                  / eager.steps,
+                  "greedy_tokens_as_eager": same})
+    print(f"[{label}] eager steps: {new_tokens / ewall:.3f} tok/s, prefill "
+          f"{eager.prefill_s / waves:.6f} s a wave, decode "
+          f"{stats['eager_decode_ms_per_step']:.6f} ms a step; greedy tokens "
+          f"of the captured run equal the eager run's in {same} of "
+          f"{new_tokens}")
+    stats.update(_same_state(captured, _one_wave(eager, reqs[:SERVE_BATCH]),
+                             tol, label))
+    return reqs, eager, stats, launched
 
 
 def _recorded_flash(fn) -> tuple:
@@ -1832,7 +2037,8 @@ def serve_phase(seed: int, times: dict) -> dict:
 
     reqs, eng, stats, launched = _serve_from_store(
         api, params, mctx, cfg.vocab, seed, "serve", ops.reset_launches,
-        lambda: {"flash_attention_fwd": ops.launches()["fwd"]})
+        lambda: {"flash_attention_fwd": ops.launches()["fwd"]},
+        tol=FLASH_TOL[cfg.compute_dtype])
     launches = launched["flash_attention_fwd"]
     times["serve_prompts_s"] = stats["prompts_s"]
     times["serve_s"] = stats["wall_s"]
@@ -1970,13 +2176,15 @@ def serve_recurrent_phase(arch: str, seed: int, times: dict) -> dict:
         flash_ops.reset_launches()
 
     reqs, eng, stats, launched = _serve_from_store(
-        api, params, mctx, cfg.vocab, seed, f"serve {arch}", reset, counts)
+        api, params, mctx, cfg.vocab, seed, f"serve {arch}", reset, counts,
+        tol=tol)
     launches, flash_launches = launched[kernel], launched["flash_attention_fwd"]
     times[f"{arch}_serve_s"] = stats["wall_s"]
     waves = stats["waves"]
-    expect = per_prefill * waves + per_step * eng.steps
+    steps = stats["decode_steps"]
+    expect = per_prefill * waves + per_step * steps
     check(launches == expect, f"{kernel} launched {launches} times; the path "
-          f"implies {per_prefill} x {waves} waves + {per_step} x {eng.steps} "
+          f"implies {per_prefill} x {waves} waves + {per_step} x {steps} "
           f"decode steps = {expect}")
     check(flash_launches == 0, f"flash_attention_fwd launched "
           f"{flash_launches} times on the {arch} path")
@@ -2118,7 +2326,8 @@ def serve_moe_phase(arch: str, seed: int, times: dict) -> dict:
     reqs, eng, stats, launched = _serve_from_store(
         api, params, mctx, cfg.vocab, seed, f"serve {arch}",
         ops.reset_launches,
-        lambda: {"flash_attention_fwd": ops.launches()["fwd"]})
+        lambda: {"flash_attention_fwd": ops.launches()["fwd"]},
+        tol=FLASH_TOL[cfg.compute_dtype])
     launches = launched["flash_attention_fwd"]
     times[f"{arch}_serve_s"] = stats["wall_s"]
     check(launches == per_wave * stats["waves"],
@@ -2181,35 +2390,22 @@ WHISPER = "whisper-tiny"
 WHISPER_PLEN = 384          # + 32 new + 8 stays within DEC_PRIME = 448
 
 
-def _inputs_engine(api, params, mctx, plen: int, max_seq: int, extra):
+def _inputs_engine(api, params, mctx, plen: int, max_seq: int, extra,
+                   compiled):
     """BatchedEngine for the vlm and encdec families, which launch/serve.py
     does not serve (nor does the reference's: their prefill takes inputs
-    besides the tokens). Each wave's prefill goes through ModelAPI.prefill
-    with `extra(rids)`, the other inputs of the wave's requests (a partial
-    wave repeats its last request, as run_wave pads it). The engine's
-    _pad_cache grows their self caches for decode."""
+    besides the tokens). Each wave's prefill inputs add `extra(rids)`,
+    the other inputs of the wave's requests (a partial wave repeats its
+    last request, as run_wave pads it), which the captured prefill copies
+    into its buffers like the tokens."""
     from repro_torch.launch.serve import BatchedEngine
 
-    class WaveInputs:
-        """The API as run_wave calls it, with the wave's other inputs."""
-        def __init__(self):
-            self.cfg, self.rids = api.cfg, []
-
-        def prefill(self, params, inputs, mctx):
-            return api.prefill(params, dict(inputs, **extra(self.rids)),
-                               mctx)
-
-        def decode(self, *args):
-            return api.decode(*args)
-
     class InputsEngine(BatchedEngine):
-        def run_wave(self, reqs):
-            self.api.rids = ([r.rid for r in reqs]
-                             + [reqs[-1].rid] * (self.batch - len(reqs)))
-            super().run_wave(reqs)
+        def wave_inputs(self, padded, toks):
+            return {"tokens": toks, **extra([r.rid for r in padded])}
 
-    return InputsEngine(WaveInputs(), params, mctx, SERVE_BATCH, plen,
-                        max_seq)
+    return InputsEngine(api, params, mctx, SERVE_BATCH, plen, max_seq,
+                        compiled=compiled)
 
 
 def serve_vlm_phase(seed: int, times: dict) -> dict:
@@ -2251,8 +2447,9 @@ def serve_vlm_phase(seed: int, times: dict) -> dict:
         api, params, mctx, cfg.vocab, seed, f"serve {VLM}",
         ops.reset_launches,
         lambda: {"flash_attention_fwd": ops.launches()["fwd"]},
-        engine=lambda max_seq: _inputs_engine(api, params, mctx, SERVE_PLEN,
-                                              max_seq, extra))
+        engine=lambda max_seq, compiled: _inputs_engine(
+            api, params, mctx, SERVE_PLEN, max_seq, extra, compiled),
+        tol=FLASH_TOL[cfg.compute_dtype])
     launches = launched["flash_attention_fwd"]
     times[f"{VLM}_serve_s"] = stats["wall_s"]
     check(launches == per_wave * stats["waves"],
@@ -2333,8 +2530,9 @@ def serve_whisper_phase(seed: int, times: dict) -> dict:
         ops.reset_launches,
         lambda: {"flash_attention_fwd": ops.launches()["fwd"]},
         plen=WHISPER_PLEN,
-        engine=lambda max_seq: _inputs_engine(api, params, mctx,
-                                              WHISPER_PLEN, max_seq, extra))
+        engine=lambda max_seq, compiled: _inputs_engine(
+            api, params, mctx, WHISPER_PLEN, max_seq, extra, compiled),
+        tol=1e-3)
     times[f"{WHISPER}_serve_s"] = stats["wall_s"]
     check(launched["flash_attention_fwd"] == 0,
           f"flash_attention_fwd launched {launched['flash_attention_fwd']} "
@@ -2394,6 +2592,7 @@ def serve_whisper_phase(seed: int, times: dict) -> dict:
 # -- phase 11: training dense-100m at full width from the store ---------------
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICROBATCHES = 30, 8, 256, 2
 TRAIN_CKPT_EVERY, TRAIN_DRILL_AT = 10, 15
+TRAIN_RESUME_FROM, TRAIN_RESUME_TO = 10, 15  # --resume: steps 11-15 again
 TRAIN_MAIN_ARGS = ["--arch", "dense-100m", "--steps", "5", "--global-batch",
                    "8", "--seq", "256", "--microbatches", "2",
                    "--ckpt-every", "5", "--inject-failure-at", "3"]
@@ -2414,9 +2613,128 @@ def _state_leaves(params, opt) -> list:
             *tree_leaves(params)]
 
 
+def _train_compiled_checks(api, tcfg, mctx, step_fn, params, opt, host,
+                           step_s: list, launches: dict, replays: int
+                           ) -> dict:
+    """The captured train step against the eager step (make_train_step)
+    from the same state and batch: loss, grad norm, params, m and v bit
+    for bit, or else within the train tests' tolerances (loss 1e-6
+    relative, the rest 2 lr); both steps timed and traced; the kernels of
+    the captured graph from traced replays; the run's launches as the
+    wrapper counted them (the first step, which runs eagerly before the
+    capture) plus the graph's kernels times its replays."""
+    import torch
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train.trainer import make_train_step, map_tree
+    eager_step = make_train_step(api, tcfg, mctx)
+    batch = {k: torch.from_numpy(v).to(mctx.device) for k, v in host.items()}
+    p_e = map_tree(lambda t: t.detach().clone(), params)
+    s_e = map_tree(lambda t: t.detach().clone(), opt)
+    p_e, s_e, m_e = eager_step(p_e, s_e, batch)
+    _, _, m_c = step_fn(params, opt, host)
+    torch.cuda.synchronize()
+    lr = float(m_e["lr"])
+    got = tree_leaves(params) + tree_leaves(opt.m) + tree_leaves(opt.v)
+    want = tree_leaves(p_e) + tree_leaves(s_e.m) + tree_leaves(s_e.v)
+    identical = all(bool(torch.equal(m_c[k], m_e[k]))
+                    for k in ("loss", "grad_norm", "lr"))
+    identical &= all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+    loss_rel = abs(float(m_c["loss"]) - float(m_e["loss"])) / abs(
+        float(m_e["loss"]))
+    state_err = max(float((a.detach() - b).abs().max())
+                    for a, b in zip(got, want))
+    check(loss_rel <= 1e-6 and state_err <= 2 * lr, f"captured train step "
+          f"off the eager step: loss {loss_rel}, state {state_err}")
+    eager_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        p_e, s_e, _ = eager_step(p_e, s_e, batch)
+        torch.cuda.synchronize()
+        eager_s.append(time.perf_counter() - t0)
+    eager_trace = device_breakdown(lambda: eager_step(p_e, s_e, batch))
+    del p_e, s_e
+    trace, kernels = graph_kernels(lambda: step_fn(params, opt, host))
+    fwd, bwd = kernels.get("flash fwd", 0), kernels.get("flash bwd", 0)
+    check(bwd % 2 == 0, f"{bwd} backward kernels in the graph")
+    total = {"fwd": launches["fwd"] + fwd * replays,
+             "bwd": launches["bwd"] + bwd // 2 * replays,
+             "bwd_softcap": launches["bwd_softcap"]}
+    med = float(np.median(step_s[1:]))
+    print(f"[train] captured step vs the eager step from the same state: "
+          f"{'bit for bit' if identical else 'not bit for bit'}, loss "
+          f"{loss_rel:.3e} relative, params and moments {state_err:.3e} "
+          f"(held at 1e-6 and 2 lr = {2 * lr:.3e}); step "
+          f"{med:.6f} s median over replays (capture {step_fn.capture_s:.3f}"
+          f" s in step 1), eager {float(np.median(eager_s)):.6f} s; traced "
+          f"replay: wall {trace['wall_s']:.6f} s, busy "
+          f"{trace['device_busy_s']:.6f} s, idle {trace['idle_share']:.4f}, "
+          f"{trace['device_ops']} device operations; traced eager step: "
+          f"wall {eager_trace['wall_s']:.6f} s, idle "
+          f"{eager_trace['idle_share']:.4f}, {eager_trace['device_ops']}; "
+          f"flash launches {total} ({launches} by the wrappers in step 1, "
+          f"{fwd} forward and {bwd} backward kernels in the graph x "
+          f"{replays} replays)")
+    print("traced train step (a replay):", trace)
+    print("traced train step (eager):", eager_trace)
+    return {"launches": total, "captured_vs_eager_identical": identical,
+            "captured_vs_eager_loss_rel": loss_rel,
+            "captured_vs_eager_state_max_abs_diff": state_err,
+            "step_s_median_replays": med, "capture_s": step_fn.capture_s,
+            "eager_step_s": eager_s,
+            "eager_step_s_median": float(np.median(eager_s)),
+            "trace_step": trace, "trace_eager_step": eager_trace,
+            "graph_kernels": kernels, "replays": replays}
+
+
+def _train_resume(ckpt, step_fn, params, opt, batches: list, losses: list,
+                  at_resume_to: list, tcfg) -> dict:
+    """launch/train.py's --resume on the card: the step-TRAIN_RESUME_FROM
+    checkpoint restored into the captured step's own tensors
+    (`restore_into`), then steps TRAIN_RESUME_FROM + 1 .. TRAIN_RESUME_TO
+    replayed on the run's batches, their losses and the params after them
+    held against the uninterrupted run's (bit for bit, or else loss within
+    1e-6 relative and params within 2 lr)."""
+    import torch
+    from repro_torch.launch.train import restore_into
+    from repro_torch.models.params import tree_leaves
+    t0 = time.perf_counter()
+    got, state = ckpt.restore({"params": params, "opt": opt},
+                              step=TRAIN_RESUME_FROM)
+    check(got == TRAIN_RESUME_FROM, f"restored step {got}")
+    ids = [id(t) for t in tree_leaves(params)]
+    restore_into(params, opt, state)
+    del state
+    restore_s = time.perf_counter() - t0
+    check([id(t) for t in tree_leaves(params)] == ids
+          and int(opt.step) == TRAIN_RESUME_FROM,
+          "the restore rebound the step's tensors")
+    again = []
+    for host in batches[TRAIN_RESUME_FROM:TRAIN_RESUME_TO]:
+        _, _, metrics = step_fn(params, opt, host)
+        again.append(float(metrics["loss"]))
+    torch.cuda.synchronize()
+    want = losses[TRAIN_RESUME_FROM:TRAIN_RESUME_TO]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(again, want))
+    errs = [float((a.cpu() - b).abs().max())
+            for a, b in zip(tree_leaves(params), at_resume_to)]
+    identical = again == want and max(errs) == 0.0
+    check(loss_rel <= 1e-6 and max(errs) <= 2 * tcfg.lr,
+          f"resumed steps off the uninterrupted run: loss {loss_rel}, "
+          f"params {max(errs)}")
+    print(f"[train] --resume: step {TRAIN_RESUME_FROM} restored into the "
+          f"captured step's tensors in {restore_s:.3f} s, steps "
+          f"{TRAIN_RESUME_FROM + 1}-{TRAIN_RESUME_TO} replayed: "
+          f"{'bit for bit' if identical else 'not bit for bit'} the "
+          f"uninterrupted run's (losses {again}, {loss_rel:.3e} relative; "
+          f"params {max(errs):.3e})")
+    return {"resume_losses": again, "resume_loss_rel": loss_rel,
+            "resume_params_max_abs_diff": max(errs),
+            "resume_identical": identical, "resume_restore_s": restore_s}
+
+
 def train_phase(seed: int, times: dict) -> dict:
     import torch
-    from repro_torch.common.config import TrainConfig
+    from repro_torch.common.config import ShapeConfig, TrainConfig
     from repro_torch.configs import get_config
     from repro_torch.core import ROS2Client
     from repro_torch.data.pipeline import (Assignment, ROS2TokenLoader,
@@ -2431,7 +2749,8 @@ def train_phase(seed: int, times: dict) -> dict:
     from repro_torch.models.params import (count_params, init_params,
                                            tree_leaves, tree_map)
     from repro_torch.train.optimizer import init_adam
-    from repro_torch.train.trainer import make_train_step, value_and_grad
+    from repro_torch.train.trainer import (jit_train_step, make_train_step,
+                                           value_and_grad)
 
     cfg = get_config("dense-100m").replace(attn_impl="flash")
     api = ModelAPI(cfg)
@@ -2454,7 +2773,8 @@ def train_phase(seed: int, times: dict) -> dict:
         tcfg = TrainConfig(lr=1e-3, total_steps=TRAIN_STEPS,
                            warmup_steps=max(1, TRAIN_STEPS // 10),
                            num_microbatches=TRAIN_MICROBATCHES)
-        step_fn = make_train_step(api, tcfg, mctx)
+        step_fn = jit_train_step(api, tcfg, mctx, ShapeConfig(
+            "train", TRAIN_SEQ, TRAIN_BATCH, "train"))
         t0 = time.perf_counter()
         gen = torch.Generator(device=dev).manual_seed(seed)
         params = init_params(api.param_defs(), gen,
@@ -2466,7 +2786,8 @@ def train_phase(seed: int, times: dict) -> dict:
         print(f"dense-100m: {cfg.n_layers} layers, d_model {cfg.d_model}, "
               f"vocab {cfg.vocab}, {n_params} params ({cfg.param_dtype}, "
               f"computing in {cfg.compute_dtype}) on the card")
-        ckpt = ROS2CheckpointManager(client, "/ckpt", keep=2)
+        # keep 3: the step-10 checkpoint stays for the resume below
+        ckpt = ROS2CheckpointManager(client, "/ckpt", keep=3)
         mon = StragglerMonitor()
         injector = FailureInjector(client.store)
 
@@ -2488,8 +2809,8 @@ def train_phase(seed: int, times: dict) -> dict:
                       f"{step + 1}")
             t0 = time.perf_counter()
             host = loader.next_batch()
-            batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
-            params, opt, metrics = step_fn(params, opt, batch)
+            # the first step runs eagerly and captures; the rest replay
+            params, opt, metrics = step_fn(params, opt, host)
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t0)
             mon.record(0, step_s[-1])
@@ -2500,11 +2821,15 @@ def train_phase(seed: int, times: dict) -> dict:
                 t0 = time.perf_counter()
                 ckpt.save(step + 1, {"params": params, "opt": opt})
                 snapshot_s.append(time.perf_counter() - t0)
+            if step + 1 == TRAIN_RESUME_TO:
+                at_resume_to = [t.detach().cpu().clone()
+                                for t in tree_leaves(params)]
         t0 = time.perf_counter()
         ckpt.wait()
         last_write_s = time.perf_counter() - t0
         wall = time.perf_counter() - t_run
         launches = ops.launches()
+        replays = step_fn.calls - 1      # the first call captures
         peak = torch.cuda.max_memory_allocated()
         lm = loader.metrics()
         dpu_ops = client.dpu.ops_processed
@@ -2517,9 +2842,6 @@ def train_phase(seed: int, times: dict) -> dict:
         # package's loss moves beyond noise in 30 steps of these flags
         # (tools/train_loss_witness.py); the cut model below is checked
         first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
-        want_bwd = cfg.n_layers * TRAIN_MICROBATCHES * TRAIN_STEPS
-        check(launches["bwd"] >= want_bwd, f"flash_attention_bwd launched "
-              f"{launches['bwd']} times, fewer than {want_bwd}")
         check(launches["bwd_softcap"] == 0, "the softcap backward ran")
         n_samples = need // (TRAIN_SEQ + 1)
         asg = Assignment(n_samples, TRAIN_BATCH, 0, 1, 0, 0)
@@ -2548,6 +2870,16 @@ def train_phase(seed: int, times: dict) -> dict:
                   "restored checkpoint differs from the saved state")
             restored_bytes += a.size
         del state, restored
+        compiled = _train_compiled_checks(
+            api, tcfg, mctx, step_fn, params, opt, loader.next_batch(),
+            step_s, launches, replays)
+        launches = compiled.pop("launches")
+        want_bwd = cfg.n_layers * TRAIN_MICROBATCHES * TRAIN_STEPS
+        check(launches["bwd"] == want_bwd, f"flash_attention_bwd launched "
+              f"{launches['bwd']} times, not {want_bwd}")
+        stats.update(compiled)
+        stats.update(_train_resume(ckpt, step_fn, params, opt,
+                                   batches, losses, at_resume_to, tcfg))
         stats.update({
             "steps": TRAIN_STEPS, "tokens": TRAIN_STEPS * TRAIN_BATCH
             * TRAIN_SEQ, "wall_s": wall,
@@ -2583,12 +2915,6 @@ def train_phase(seed: int, times: dict) -> dict:
               f"for bit; every batch equals its corpus slice ({after_drill} "
               f"read after the drill)")
 
-        # one more step, traced: where a step's time goes on the card
-        host = loader.next_batch()
-        batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
-        stats["trace_step"] = device_breakdown(
-            lambda: step_fn(params, opt, batch))
-        print("traced train step:", stats["trace_step"])
     finally:
         if loader is not None:
             loader.close()
@@ -2848,6 +3174,7 @@ def main(argv=None) -> int:
         "library_ms": flash["library_ms"],
         "max_abs_err_by_dtype": flash["max_abs_err_by_dtype"],
         "shape": dict(zip(("B", "T", "H", "KH", "D"), SERVE_SHAPE)),
+        "floor_ms": flash["floor_ms"], "floor_call_ms": flash["floor_call_ms"],
         "bf16_kernels": tensor_cores["flash_attention_fwd"]}, {
         "name": "flash_attention_bwd", "route": "cuda", "source": FKB.SOURCE,
         "replaces": FKB.REPLACES, "launches": train["flash_launches"]["bwd"],
@@ -2857,6 +3184,8 @@ def main(argv=None) -> int:
         "library_ms": bwd["library_ms"],
         "max_abs_err_by_dtype": flash_bwd["max_abs_err_by_dtype"],
         "shape": bwd["shape"], "shapes": flash_bwd["shapes"],
+        "floor_ms": flash_bwd["floor_ms"],
+        "floor_call_ms": flash_bwd["floor_call_ms"],
         "bf16_kernels": tensor_cores["flash_attention_bwd"]}, {
         "name": "rglru_scan", "route": "cuda", "source": RGK.SOURCE,
         "replaces": RGK.REPLACES,
@@ -2875,6 +3204,7 @@ def main(argv=None) -> int:
         "bound_ms": wkv["bound_ms"], "bound_by": wkv["bound_by"],
         "library_ms": None, "shape": wkv["shape"], "flops": wkv["flops"],
         "bytes": wkv["bytes"], "kernel_ms": wkv["kernel_ms"],
+        "floor_ms": wkv["floor_ms"], "floor_call_ms": wkv["floor_call_ms"],
         "tc_kernels": tensor_cores["wkv6"]}] + [{
         "name": name, "route": "cuda", "source": kern.SOURCE,
         "replaces": kern.REPLACES, "launches": stream["launches"][name],

@@ -1,13 +1,17 @@
-"""What the storage kernels' wrappers (`stream_cipher`, `fletcher`) share
-around a launch: the check of their input and the C call on the input's
-card, on PyTorch's current stream there.
+"""What the kernels' wrappers share around a launch: the C call on the
+input's card, on PyTorch's current stream there (`call_on`, every
+wrapper); the check of the storage kernels' input (`check_bytes`,
+`stream_cipher` and `fletcher`); and whether a call launches its kernel
+or records it into a CUDA graph being captured (`launching`, which the
+model kernels' launch counts read).
 
-A 1 MiB extent takes the kernels some 2 us on an H100, so the host call
-is most of a checksum's cost; these do only what the launch needs. The
-card is entered (`torch.cuda.device`) only when the tensor is not on the
-current one, and the stream is read as the raw pointer PyTorch's own
-generated code reads (`torch._C._cuda_getCurrentRawStream`), without
-making a `torch.cuda.Stream`.
+A 1 MiB extent takes the storage kernels some 2 us on an H100, so the
+host call is most of a checksum's cost; these do only what the launch
+needs. The card is entered (`torch.cuda.device`) only when the tensor is
+not on the current one, and the stream is read as the raw pointer
+PyTorch's own generated code reads (`torch._C._cuda_getCurrentRawStream`),
+without making a `torch.cuda.Stream`. Under capture that is the capturing
+stream, so a wrapper's launch lands in the graph.
 """
 from __future__ import annotations
 
@@ -35,3 +39,10 @@ def call_on(index: int, fn: Callable, *args):
         return fn(*args, torch._C._cuda_getCurrentRawStream(index))
     with torch.cuda.device(index):
         return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+
+
+def launching() -> bool:
+    """Whether a kernel call on the current CUDA stream launches now:
+    False while the stream is being captured into a CUDA graph, where the
+    call records its kernel and each replay of the graph launches it."""
+    return not torch.cuda.is_current_stream_capturing()

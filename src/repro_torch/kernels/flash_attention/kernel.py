@@ -15,6 +15,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._launch import call_on
 
 HEAD_DIMS = (64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -91,14 +92,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3],
                                     *v.stride()[:3], *out.stride()[:3])
-    lib = _lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_fwd(
-            DTYPES[q.dtype], B, T, S, H, KH, D, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), lse.data_ptr(), strides,
-            float(scale), int(bool(causal)), int(window or 0),
-            float(softcap or 0.0), seq_k, stream)
+    err = call_on(
+        q.device.index, _lib().flash_attention_fwd, DTYPES[q.dtype], B, T, S,
+        H, KH, D, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), strides, float(scale), int(bool(causal)),
+        int(window or 0), float(softcap or 0.0), seq_k)
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error "
                            f"{err}")

@@ -17,6 +17,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._launch import call_on
 from repro_torch.kernels.flash_attention.kernel import (DTYPES, HEAD_DIMS,
                                                         readable)
 
@@ -92,14 +93,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     strides = (ctypes.c_int64 * 21)(*(s for x in (q, k, v, dout, dq, dk, dv)
                                       for s in x.stride()[:3]))
-    lib = _lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_bwd(
-            DTYPES[q.dtype], B, T, S, H, KH, D, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), strides,
-            float(scale), int(bool(causal)), int(window or 0), seq_k, stream)
+    err = call_on(
+        q.device.index, _lib().flash_attention_bwd, DTYPES[q.dtype], B, T, S,
+        H, KH, D, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), strides, float(scale), int(bool(causal)),
+        int(window or 0), seq_k)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "
                            f"{err}")

@@ -22,7 +22,9 @@ PyTorch versions in `ref`. Softcap keeps the reference's split
 not in the backward kernel, so the softcap backward is autograd through
 the plain `ref.attention_ref`, on either device, counted under
 LAUNCHES["bwd_softcap"]. LAUNCHES["fwd"] and LAUNCHES["bwd"] count kernel
-launches (one per call; the backward call launches its two kernels).
+launches (one per call; the backward call launches its two kernels). A
+call captured into a CUDA graph launches nothing and is not counted: each
+replay of the graph launches the kernels it recorded.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels._launch import launching
 from repro_torch.kernels.flash_attention import kernel as K
 from repro_torch.kernels.flash_attention import kernel_bwd as KB
 from repro_torch.kernels.flash_attention import ref
@@ -81,7 +84,8 @@ def _forward(q, k, v, scale, causal, window, softcap, block_q, block_k):
         return out[:, :T], lse[:, :, :T]
     out, lse = K.flash_attention_fwd(q, k, v, scale=scale, causal=causal,
                                      window=window, softcap=softcap)
-    _count("fwd")
+    if launching():
+        _count("fwd")
     return out, lse
 
 
@@ -104,7 +108,8 @@ def flash_attention_backward(q, k, v, out, lse, dout, *, scale: float,
         dq, dk, dv = KB.flash_attention_bwd(
             q, k, v, dout.contiguous(), lse.contiguous(),
             delta.contiguous(), scale=scale, causal=causal, window=window)
-        _count("bwd")
+        if launching():
+            _count("bwd")
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 

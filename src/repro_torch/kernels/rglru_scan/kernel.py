@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._launch import call_on
 
 SOURCE = "src/repro_torch/csrc/rglru_scan.cu"
 REPLACES = "src/repro/kernels/rglru_scan/kernel.py:51"
@@ -67,13 +68,9 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
     h = torch.empty_like(a)
     if h.numel() == 0:
         return h
-    lib = _lib()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.rglru_scan(a.data_ptr(), b.data_ptr(),
-                             None if h0 is None else h0.data_ptr(),
-                             h.data_ptr(), B, T, R, int(bool(reverse)),
-                             stream)
+    err = call_on(a.device.index, _lib().rglru_scan, a.data_ptr(),
+                  b.data_ptr(), None if h0 is None else h0.data_ptr(),
+                  h.data_ptr(), B, T, R, int(bool(reverse)))
     if err != 0:
         raise RuntimeError(f"rglru_scan launch failed: CUDA error {err}")
     return h

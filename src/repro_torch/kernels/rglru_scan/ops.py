@@ -19,7 +19,8 @@ computed by the same kernel in its reverse mode (a flag, not flips: the
 kernel walks t from T-1 down, fed a shifted one step left), as the
 reference runs its forward kernel on the time-reversed sequence
 (`ops.py:149-162`). LAUNCHES["fwd"] and LAUNCHES["bwd"] count kernel
-launches.
+launches; a call captured into a CUDA graph launches nothing and is not
+counted.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.kernels._launch import launching
 from repro_torch.kernels.rglru_scan import kernel as K
 from repro_torch.kernels.rglru_scan import ref
 
@@ -51,8 +53,9 @@ def _scan(a, b, h0, reverse: bool, leg: str) -> torch.Tensor:
         return ref.rglru_scan_ref(a, b, h0, reverse=reverse)
     h = K.rglru_scan(a.contiguous(), b.contiguous(),
                      None if h0 is None else h0.contiguous(), reverse=reverse)
-    with _launch_lock:
-        LAUNCHES[leg] += 1
+    if launching():
+        with _launch_lock:
+            LAUNCHES[leg] += 1
     return h
 
 

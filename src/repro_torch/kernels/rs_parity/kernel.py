@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._launch import call_on
 from repro_torch.kernels.rs_parity import ref
 
 MAX_ROWS = 11                   # m, s <= 11: any ec(k,p) up to ec(8,3)
@@ -86,11 +87,9 @@ def rs_matmul(mat: np.ndarray, cells: torch.Tensor) -> torch.Tensor:
                          f"{tuple(cells.shape)}")
     n = cells.shape[1]
     out = torch.empty((m, n), dtype=torch.uint8, device=cells.device)
-    lib = _lib()
-    with torch.cuda.device(cells.device):
-        stream = torch.cuda.current_stream(cells.device).cuda_stream
-        err = lib.rs_matmul(_tables(coef.tobytes(), m, s), m, s,
-                            cells.data_ptr(), out.data_ptr(), n, stream)
+    err = call_on(cells.device.index, _lib().rs_matmul,
+                  _tables(coef.tobytes(), m, s), m, s, cells.data_ptr(),
+                  out.data_ptr(), n)
     if err != 0:
         raise RuntimeError(f"rs_matmul launch failed: CUDA error {err}")
     return out

@@ -19,6 +19,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._launch import call_on
 
 HEAD_DIMS = (16, 32, 64, 128)
 CHUNK = 32                               # WKV_CHUNK of the source
@@ -86,13 +87,10 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
     ws = torch.empty((B, H, -(-T // CHUNK), hd, hd), dtype=torch.float32,
                      device=r.device)
-    lib = _lib()
-    with torch.cuda.device(r.device):
-        stream = torch.cuda.current_stream(r.device).cuda_stream
-        err = lib.wkv6(r.data_ptr(), k.data_ptr(), v.data_ptr(),
-                       w.data_ptr(), u.data_ptr(),
-                       None if s0 is None else s0.data_ptr(), y.data_ptr(),
-                       s.data_ptr(), ws.data_ptr(), B, T, H, hd, stream)
+    err = call_on(r.device.index, _lib().wkv6, r.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), w.data_ptr(), u.data_ptr(),
+                  None if s0 is None else s0.data_ptr(), y.data_ptr(),
+                  s.data_ptr(), ws.data_ptr(), B, T, H, hd)
     if err != 0:
         raise RuntimeError(f"wkv6 launch failed: CUDA error {err}")
     return y, s

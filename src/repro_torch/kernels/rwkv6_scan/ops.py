@@ -11,7 +11,9 @@ effect; a failed build or launch raises, nothing falls back.
 
 It is differentiable like the reference's custom_vjp (`ops.py:167-188`):
 the backward is autograd through the plain sequential version
-`ref.wkv_ref`, on either device. LAUNCHES["fwd"] counts kernel launches.
+`ref.wkv_ref`, on either device. LAUNCHES["fwd"] counts kernel calls
+(two kernels each); a call captured into a CUDA graph launches nothing and
+is not counted.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels._launch import launching
 from repro_torch.kernels.rwkv6_scan import kernel as K
 from repro_torch.kernels.rwkv6_scan import ref
 
@@ -45,8 +48,9 @@ def _forward(r, k, v, w, u, s0, chunk: int):
         return ref.wkv_plain(r, k, v, w, u, s0, chunk)
     y, s = K.wkv6(*(x.contiguous() for x in (r, k, v, w, u)),
                   None if s0 is None else s0.contiguous())
-    with _launch_lock:
-        LAUNCHES["fwd"] += 1
+    if launching():
+        with _launch_lock:
+            LAUNCHES["fwd"] += 1
     return y, s
 
 

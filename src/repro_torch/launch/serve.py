@@ -12,6 +12,15 @@ KV cache is updated in place across decode steps). Tokens/s and per-wave
 occupancy are reported; prompt bytes arrive through the same DFS client
 the trainer uses (host or DPU-offloaded, TCP or RDMA).
 
+Prefill and decode are compiled steps, as the reference jits both
+(`train/trainer.py` `StaticStep`): on the card each is captured once per
+engine into a CUDA graph (the two share one memory pool) and a wave is one
+prefill replay, then one decode replay a step plus the host read of its
+tokens. The decode graph holds the greedy pick and the position's
+increment, and prefill's cache lands in the decode step's max_seq cache,
+made once. On the CPU the same steps run eagerly on the same buffers.
+`compiled=()` runs both eagerly, op by op.
+
 The model, its params and the client run on the CUDA card; there is no
 CPU run of `main`. Library callers pass `device="cpu"` to the ModelAPI,
 the context and the client (the tests do).
@@ -20,8 +29,9 @@ from __future__ import annotations
 
 import argparse
 import time
+import weakref
 from dataclasses import dataclass, field
-from typing import List
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +42,7 @@ from repro_torch.core.client import ROS2Client
 from repro_torch.launch.mesh import make_host_mesh_ctx
 from repro_torch.models.api import ModelAPI
 from repro_torch.models.params import init_params
+from repro_torch.train.trainer import BIND, LIKE, StaticStep, map_tree
 
 TOKEN_BYTES = 4
 # the sequence axis of each family's self-attention caches: (L,B,S,KH,D)
@@ -89,19 +100,42 @@ def read_prompt(client, rid: int, prompt_len: int) -> np.ndarray:
 
 class BatchedEngine:
     """Wave-scheduled batched prefill+decode over a fixed slot count, on
-    the device of `mctx`. `prefill_s` and `decode_s` add up the host wall
-    time of each phase (each ends in a device-to-host read of the tokens,
-    which waits for the card)."""
+    the device of `mctx`. `compiled` names the steps that run as compiled
+    steps (captured CUDA graphs on the card); the others run eagerly.
+    `prefill_s` and `decode_s` add up the host wall time of each phase
+    (each ends in a device-to-host read of the tokens, which waits for the
+    card)."""
 
     def __init__(self, api: ModelAPI, params, mctx, batch: int,
-                 prompt_len: int, max_seq: int):
+                 prompt_len: int, max_seq: int,
+                 compiled: Tuple[str, ...] = ("prefill", "decode")):
         self.api, self.params, self.mctx = api, params, mctx
         self.batch, self.prompt_len, self.max_seq = batch, prompt_len, max_seq
+        if not set(compiled) <= {"prefill", "decode"}:
+            raise ValueError(f"compiled names prefill and decode, got "
+                             f"{compiled}")
+        self.compiled = tuple(compiled)
         self.steps = 0
         self.slot_steps = 0
         self.active_slot_steps = 0
         self.prefill_s = 0.0
         self.decode_s = 0.0
+        # the decode step's state, made by the first prefill: the next
+        # token, its position and the max_seq cache; and the last logits
+        # of each step
+        self.token = self.pos = self.cache = None
+        self.logits = {}
+        pool = (torch.cuda.graph_pool_handle()
+                if mctx.device.type == "cuda" else None)
+        # the steps reach the engine weakly: an engine dropped frees its
+        # params and graphs at once, not at the next garbage collection
+        me = weakref.proxy(self)
+        self.prefill_step = StaticStep(lambda *a: me._prefill(*a),
+                                       mctx.device,
+                                       {"params": BIND, "inputs": LIKE},
+                                       pool)
+        self.decode_step = StaticStep(lambda *a: me._decode(*a), mctx.device,
+                                      {"params": BIND}, pool)
 
     def _pad_cache(self, cache):
         """Grow the self-attention caches' sequence axis from prompt_len to
@@ -115,6 +149,58 @@ class BatchedEngine:
         return grow_cache(cache, self.api.cfg.family,
                           self.max_seq - self.prompt_len)
 
+    def _land(self, cache) -> None:
+        """A prefill cache written into the decode state as `_pad_cache`
+        would grow it: the first prompt_len positions, zeros after."""
+        grown = self.max_seq - self.prompt_len
+        if self.cache is None:          # the first (eager) call makes it
+            self.cache = self._pad_cache(cache)
+            return
+
+        def land(dst, src):
+            if dst.shape == src.shape:
+                dst.copy_(src)
+                return
+            axis = next(i for i, (a, b) in enumerate(zip(dst.shape,
+                                                         src.shape))
+                        if a != b)
+            dst.narrow(axis, 0, self.prompt_len).copy_(src)
+            dst.narrow(axis, self.prompt_len, grown).zero_()
+        map_tree(land, self.cache, cache)
+
+    def _prefill(self, params, inputs):
+        """Prefill, its cache landed in the decode state, the first greedy
+        tokens and their positions; returns the logits."""
+        logits, cache = self.api.prefill(params, inputs, self.mctx)
+        self._land(cache)
+        if self.token is None:
+            self.token = logits.argmax(-1).to(torch.int32)
+            self.pos = torch.full((self.batch,), self.prompt_len,
+                                  dtype=torch.int32, device=logits.device)
+        else:
+            self.token.copy_(logits.argmax(-1))
+            self.pos.fill_(self.prompt_len)
+        return logits
+
+    def _decode(self, params):
+        """One decode step on the decode state, in place: the cache, the
+        next greedy token and its position; returns the logits."""
+        logits, _ = self.api.decode(params, {"token": self.token,
+                                             "pos": self.pos}, self.cache,
+                                    self.mctx)
+        self.token.copy_(logits.argmax(-1))
+        self.pos.add_(1)
+        return logits
+
+    def _run_prefill(self, inputs) -> None:
+        step = (self.prefill_step if "prefill" in self.compiled
+                else self._prefill)
+        self.logits["prefill"] = step(self.params, inputs)
+
+    def _run_decode(self) -> None:
+        step = self.decode_step if "decode" in self.compiled else self._decode
+        self.logits["decode"] = step(self.params)
+
     def run_wave(self, reqs: List[Request]) -> None:
         n = len(reqs)
         if not 0 < n <= self.batch:
@@ -124,23 +210,15 @@ class BatchedEngine:
         with torch.inference_mode():
             t0 = time.perf_counter()
             toks = torch.from_numpy(np.stack([r.prompt for r in padded]))
-            logits, cache = self.api.prefill(self.params, {"tokens": toks},
-                                             self.mctx)
-            cache = self._pad_cache(cache)
-            cur = logits.argmax(-1).to(torch.int32)
-            pos = torch.full((self.batch,), self.prompt_len,
-                             dtype=torch.int32, device=cur.device)
-            first = cur.tolist()
+            self._run_prefill(self.wave_inputs(padded, toks))
+            first = self.token.tolist()
             self.prefill_s += time.perf_counter() - t0
             for i, r in enumerate(reqs):
                 r.out.append(first[i])
             t0 = time.perf_counter()
             while not all(r.done for r in reqs):
-                logits, cache = self.api.decode(
-                    self.params, {"token": cur, "pos": pos}, cache, self.mctx)
-                cur = logits.argmax(-1).to(torch.int32)
-                pos = pos + 1
-                step = cur.tolist()
+                self._run_decode()
+                step = self.token.tolist()
                 self.steps += 1
                 self.slot_steps += self.batch
                 for i, r in enumerate(reqs):
@@ -148,6 +226,11 @@ class BatchedEngine:
                         r.out.append(step[i])
                         self.active_slot_steps += 1
             self.decode_s += time.perf_counter() - t0
+
+    def wave_inputs(self, padded: List[Request], toks: torch.Tensor) -> dict:
+        """The prefill inputs of a wave: its tokens. An engine for the vlm
+        or encdec family adds their other inputs here."""
+        return {"tokens": toks}
 
 
 def main(argv=None):

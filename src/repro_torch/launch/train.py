@@ -10,8 +10,12 @@ written into the replicated object store through the DFS client (host or
 DPU-offloaded), the loader streams batches over the RDMA/TCP data plane
 with prefetch + hedged reads, and checkpoints flow back asynchronously.
 The model, its params and its optimizer state live on the card; each
-step's batch goes to the card once. It runs on the card only: without one
-it raises.
+step's batch goes to the card once, into the static batch buffers of the
+compiled step (`jit_train_step`: captured once into a CUDA graph and
+replayed every step, the params and moments updated in place). The
+checkpoint writer snapshots those tensors between replays, and `--resume`
+copies the restored state into them. It runs on the card only: without
+one it raises.
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.common.config import TrainConfig
+from repro_torch.common.config import ShapeConfig, TrainConfig
 from repro_torch.configs import get_config
 from repro_torch.core.client import ROS2Client
 from repro_torch.data.pipeline import ROS2TokenLoader, write_token_shards
@@ -29,9 +33,10 @@ from repro_torch.distributed.checkpoint import ROS2CheckpointManager
 from repro_torch.distributed.fault import FailureInjector, StragglerMonitor
 from repro_torch.launch.mesh import make_host_mesh_ctx
 from repro_torch.models.api import ModelAPI
-from repro_torch.models.params import init_params, params_from_numpy
+from repro_torch.models.params import (init_params, params_from_numpy,
+                                       tree_map)
 from repro_torch.train.optimizer import AdamState, init_adam
-from repro_torch.train.trainer import make_train_step
+from repro_torch.train.trainer import jit_train_step
 
 
 def synth_tokens(vocab: int, n: int, seed: int = 0) -> np.ndarray:
@@ -64,6 +69,17 @@ def state_from_numpy(state, device) -> tuple:
             AdamState(step=torch.tensor(np.array(opt.step), device=device),
                       m=params_from_numpy(opt.m, device),
                       v=params_from_numpy(opt.v, device)))
+
+
+@torch.no_grad()
+def restore_into(params, opt: AdamState, state) -> None:
+    """A restored checkpoint's state copied into `params` and `opt` in
+    place (the compiled step's own tensors), not rebound."""
+    new_params, new_opt = state_from_numpy(state, opt.step.device)
+    for dst, src in ((params, new_params), (opt.m, new_opt.m),
+                     (opt.v, new_opt.v)):
+        tree_map(lambda d, s: d.copy_(s), dst, src)
+    opt.step.copy_(new_opt.step)
 
 
 def main(argv=None):
@@ -101,7 +117,8 @@ def main(argv=None):
     tcfg = TrainConfig(lr=args.lr, total_steps=args.steps,
                        warmup_steps=max(1, args.steps // 10),
                        num_microbatches=args.microbatches)
-    step_fn = make_train_step(api, tcfg, mctx)
+    step_fn = jit_train_step(api, tcfg, mctx, ShapeConfig(
+        "train", args.seq, args.global_batch, "train"))
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = init_params(api.param_defs(), gen,
                          getattr(torch, cfg.param_dtype), dev)
@@ -112,7 +129,7 @@ def main(argv=None):
     if args.resume:
         s, state = ckpt.restore({"params": params, "opt": opt})
         if s is not None:
-            params, opt = state_from_numpy(state, dev)
+            restore_into(params, opt, state)
             start = s
             print(f"[train] resumed from step {s}")
 
@@ -127,9 +144,7 @@ def main(argv=None):
             print(f"[drill] killed storage device {victim}; reads now come "
                   f"from replicas")
         t0 = time.time()
-        batch = {k: torch.from_numpy(v).to(dev)
-                 for k, v in loader.next_batch().items()}
-        params, opt, metrics = step_fn(params, opt, batch)
+        params, opt, metrics = step_fn(params, opt, loader.next_batch())
         torch.cuda.synchronize(dev)
         dt = time.time() - t0
         mon.record(0, dt)

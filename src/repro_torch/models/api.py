@@ -5,14 +5,16 @@
     out, cache  = api.prefill(params, inputs, mctx)
     out, cache  = api.decode(params, inputs, cache, mctx)
     api.cache_specs(batch, seq_len) -> shapes and dtypes (no allocation)
+    api.input_specs(shape)          -> the step's inputs, likewise
 
 Every family of the reference is ported: dense and moe (`transformer.py`,
 with `moe.py`), hybrid (`recurrent.py`), ssm (`rwkv.py`), vlm (`vlm.py`)
 and encdec (`encdec.py`). Inputs may be tensors or arrays; arrays are
 placed on the API's device, the CUDA card unless the caller asks for the
-CPU. The reference's sharding specs (`cache_pspecs`, `input_specs`,
-`input_pspecs`) wait for the multi-device and dry-run items of ROADMAP
-Queue 1.
+CPU. `input_specs` gives the static buffers of the compiled steps
+(`train/trainer.py` `jit_*`). The reference's sharding specs
+(`cache_pspecs`, `input_pspecs`) wait for the multi-device and dry-run
+items of ROADMAP Queue 1.
 """
 from __future__ import annotations
 
@@ -21,9 +23,12 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch.common.config import ModelConfig
+from repro_torch.common.config import ModelConfig, ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.context import MeshCtx
+from repro_torch.models.transformer import CacheSpec
+
+DEC_PRIME = 448          # decoder token budget for enc-dec cells
 
 
 @dataclasses.dataclass
@@ -97,3 +102,30 @@ class ModelAPI:
             return m.cache_spec(cfg, batch, seq_len, cfg.encdec.n_frames,
                                 dtype)
         return m.cache_spec(cfg, batch, seq_len, dtype)
+
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, Any]:
+        """Shapes and dtypes of a step's inputs at `shape` (no
+        allocation): tokens and labels to train, tokens to prefill (with
+        the vlm's patch embeddings or the encdec's frames, and its
+        DEC_PRIME decoder tokens), and the token, position and cache of a
+        decode step against a seq_len cache."""
+        cfg, fam = self.cfg, self.cfg.family
+        B, S = shape.global_batch, shape.seq_len
+        cdt = torch.bfloat16
+        if shape.kind == "decode":
+            return {"token": CacheSpec((B,), torch.int32),
+                    "pos": CacheSpec((B,), torch.int32),
+                    "cache": self.cache_specs(B, S)}
+        if fam == "encdec":
+            out = {"frames": CacheSpec((B, S, cfg.d_model), cdt),
+                   "tokens": CacheSpec((B, DEC_PRIME), torch.int32)}
+            tokens = (B, DEC_PRIME)
+        else:
+            out = {"tokens": CacheSpec((B, S), torch.int32)}
+            tokens = (B, S)
+        if fam == "vlm":
+            out["vision_embeds"] = CacheSpec(
+                (B, cfg.vlm.n_vision_tokens, cfg.vlm.d_vision), cdt)
+        if shape.kind == "train":
+            out["labels"] = CacheSpec(tokens, torch.int32)
+        return out

@@ -114,7 +114,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"chunk {csize} does not divide kv length {S}")
 
     dev = q.device
-    neg = torch.tensor(-1e30, dtype=torch.float32, device=dev)
+    # a fill on the device, not a copy from the host, so that a CUDA graph
+    # can capture it
+    neg = torch.full((), -1e30, dtype=torch.float32, device=dev)
     m = torch.full((B, KH, G, T), -math.inf, dtype=torch.float32, device=dev)
     l = torch.zeros((B, KH, G, T), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, KH, G, T, Dv), dtype=torch.float32, device=dev)

@@ -222,7 +222,7 @@ def _local_attn_mix(x, p, cfg: ModelConfig, positions, state=None, pos=None):
         s = torch.einsum("btkgd,bskd->bkgts", qg.float(),
                          ck.to(cdt).float()) / math.sqrt(D)
         s = torch.where(valid[:, None, None, None, :], s,
-                        torch.tensor(-1e30, dtype=s.dtype, device=s.device))
+                        torch.full((), -1e30, dtype=s.dtype, device=s.device))
         w_ = torch.softmax(s, dim=-1).to(cdt)
         out = torch.einsum("bkgts,bskd->btkgd", w_, cv.to(cdt))
         out = out.reshape(B, 1, H, D)

@@ -229,7 +229,7 @@ def _mla(x, p, cfg: ModelConfig, positions, *, cache=None, pos=None):
         valid = (torch.arange(S, device=x.device)[None, :]
                  < (pos + 1)[:, None])                              # (B,S)
         s = torch.where(valid[:, None, None, :], s,
-                        torch.tensor(-1e30, dtype=s.dtype, device=s.device))
+                        torch.full((), -1e30, dtype=s.dtype, device=s.device))
         w = torch.softmax(s, dim=-1).to(cdt)
         ctx = torch.einsum("bhts,bsk->bthk", w, ckv_d)
         out = torch.einsum("bthk,khv->bthv", ctx, p["w_uv"].to(cdt))

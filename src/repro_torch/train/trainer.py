@@ -1,23 +1,34 @@
-"""The train step: microbatched gradient accumulation and the optional
-int8 gradient round trip, the counterpart of `make_train_step` in
-`repro/train/trainer.py`.
+"""The train and serve steps, the counterparts of
+`repro/train/trainer.py`: microbatched gradient accumulation, the
+optional int8 gradient round trip, and the compiled steps
+`jit_train_step`, `jit_prefill_step` and `jit_decode_step`.
 
 Gradients come from autograd over `api.loss` with the params as leaf
-tensors. The reference's `jit_*` wiring (shardings, donation) waits for
-the multi-device slice (ROADMAP Queue 1, "Multi-device"); on one device
-the step runs eagerly and `adamw_update` updates params and moments in
-place.
+tensors; `adamw_update` updates params and moments in place.
+
+A compiled step is the port's counterpart of a function under `jax.jit`
+on one device (`StaticStep`): its inputs live in static buffers made from
+`api.input_specs(shape)`, and on the card the step is captured once into
+a CUDA graph and replayed on every later call, one host call a step as an
+XLA executable is. Donation (`donate_argnums`) becomes an update of those
+buffers in place. On the CPU the same body runs eagerly on the same
+buffers. The reference's shardings wait for the multi-device slice
+(ROADMAP Queue 1, "Multi-device").
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+import gc
+import time
+from typing import Any, Callable, Dict
 
+import numpy as np
 import torch
 
-from repro_torch.common.config import TrainConfig
+from repro_torch.common.config import ShapeConfig, TrainConfig
 from repro_torch.models.api import ModelAPI
 from repro_torch.models.context import MeshCtx
 from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.models.transformer import CacheSpec
 from repro_torch.train.optimizer import AdamState, adamw_update
 
 
@@ -98,3 +109,215 @@ def make_train_step(api: ModelAPI, tcfg: TrainConfig, mctx: MeshCtx):
         return new_params, new_opt, metrics
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# Compiled steps: static buffers, captured once, replayed
+
+BIND = "bind"   # the first call's tensors become the step's own (donated)
+LIKE = "like"   # the step makes its own copies of the first call's tensors
+
+
+def map_tree(fn, tree, *rest):
+    """fn over the leaves (tensors, arrays, specs) of nested dicts and
+    tuples of one structure; None stays None, a NamedTuple keeps its
+    type."""
+    if tree is None:
+        return None
+    if isinstance(tree, (torch.Tensor, np.ndarray, CacheSpec)):
+        return fn(tree, *rest)
+    if isinstance(tree, dict):
+        for r in rest:
+            if set(r) != set(tree):
+                raise ValueError(f"an input with keys {sorted(r)} where the "
+                                 f"step takes {sorted(tree)}")
+        return {k: map_tree(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    items = [map_tree(fn, v, *(r[i] for r in rest))
+             for i, v in enumerate(tree)]
+    if hasattr(tree, "_fields"):
+        return type(tree)(*items)
+    return type(tree)(items)
+
+
+def _tensors(tree) -> list:
+    out = []
+    map_tree(lambda t: out.append(t) if isinstance(t, torch.Tensor) else None,
+             tree)
+    return out
+
+
+def _is_specs(tree) -> bool:
+    leaves = []
+    map_tree(leaves.append, tree)
+    return bool(leaves) and isinstance(leaves[0], CacheSpec)
+
+
+class StaticStep:
+    """`body(*args)` on static buffers: the port's counterpart of a
+    function under `jax.jit`, on one device.
+
+    `buffers` names the body's arguments in order, each mapped to a tree
+    of CacheSpecs, to BIND or to LIKE. For specs the step makes its own
+    tensors at the first call, in the specs' shapes and the dtypes of the
+    tensors given (as jax.jit specialises on its arguments' dtypes); for
+    LIKE, in the shapes given too; with BIND the first call's tensors
+    become the step's own (the params, and state donated to the step).
+    Every later call copies what it is given into the step's tensors,
+    unless it is given those very tensors, as the previous call's outputs
+    are; a shape other than the buffer's raises.
+
+    On a CUDA device the first call runs the body on a side stream, which
+    warms up the libraries, the allocator and autograd and is that call's
+    step; the body is then captured into a CUDA graph, and every later
+    call is one replay, which returns the graph's outputs (the next
+    replay overwrites them). A capture or a replay that fails raises:
+    there is no eager fallback on the card. Steps given one `pool`
+    (`torch.cuda.graph_pool_handle()`) share their graphs' memory and must
+    run one at a time, as an engine's prefill and decode do. On the CPU
+    the body runs eagerly on the same buffers."""
+
+    def __init__(self, body: Callable, device, buffers: Dict[str, Any],
+                 pool=None):
+        self.body, self.device, self.pool = body, torch.device(device), pool
+        self.buffers = dict(buffers)
+        self.graph = None
+        self.out = None
+        self.copies = 0         # leaves copied into the buffers
+        self.calls = 0          # on the card each but the first a replay
+        self.capture_s = 0.0    # warm-up and capture, host wall time
+
+    def _take(self, name: str, value) -> None:
+        static = self.buffers[name]
+        if static is BIND:
+            self.buffers[name] = value
+            return
+        if static is LIKE or _is_specs(static):
+            def make(v, spec=None):
+                shape = tuple(v.shape) if spec is None else spec.shape
+                return torch.empty(shape, dtype=torch.as_tensor(v).dtype,
+                                   device=self.device)
+            static = self.buffers[name] = (
+                map_tree(make, value) if static is LIKE
+                else map_tree(lambda spec, v: make(v, spec), static, value))
+
+        def copy(s, v):
+            if v is s:
+                return
+            v = torch.as_tensor(v)
+            if tuple(v.shape) != tuple(s.shape):
+                raise ValueError(f"{name}: a {tuple(v.shape)} input where "
+                                 f"the step's buffer is {tuple(s.shape)}")
+            s.copy_(v)
+            self.copies += 1
+        map_tree(copy, static, value)
+
+    def __call__(self, *args):
+        if len(args) != len(self.buffers):
+            raise TypeError(f"the step takes {list(self.buffers)}")
+        with torch.no_grad():       # buffers take data, not gradients
+            for name, value in zip(self.buffers, args):
+                self._take(name, value)
+        self.calls += 1
+        if self.device.type != "cuda":
+            return self.body(*self.buffers.values())
+        if self.graph is None:
+            return self._capture()
+        self.graph.replay()
+        return self.out
+
+    def _capture(self):
+        t0 = time.perf_counter()
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            out = self.body(*self.buffers.values())
+        main.wait_stream(side)
+        for t in _tensors(out):
+            t.record_stream(main)
+        graph = torch.cuda.CUDAGraph()
+        # no graph may be freed during the capture: garbage is collected
+        # first and the collector waits until the capture ends (on an H100,
+        # captures next to graphs left to the collector left the default
+        # CUDA generator in capture mode, and the next torch.randn raised).
+        # thread_local: the storage client's and the loader's threads may
+        # call CUDA while this one captures
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool, stream=side,
+                                  capture_error_mode="thread_local"):
+                self.out = self.body(*self.buffers.values())
+        finally:
+            if collecting:
+                gc.enable()
+        self.graph = graph
+        self.capture_s = time.perf_counter() - t0
+        return out
+
+
+def _undonated(step: StaticStep, donated: tuple):
+    """`step` returning copies of its outputs at `donated`, so that no
+    buffer of the step is handed out (donate=False)."""
+    def call(*args):
+        out = step(*args)
+        return tuple(map_tree(torch.clone, o) if i in donated else o
+                     for i, o in enumerate(out))
+    call.step = step
+    return call
+
+
+def jit_train_step(api: ModelAPI, tcfg: TrainConfig, mctx: MeshCtx,
+                   shape: ShapeConfig, donate: bool = True):
+    """Returns train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics), compiled on the batch buffers of `api.input_specs(shape)`.
+    With `donate`, the first call's params and AdamState become the
+    step's and every call updates them in place (the reference's
+    donate_argnums=(0, 1)); without, the step keeps copies and returns
+    copies. The returned object is the StaticStep (or, without `donate`,
+    a function whose `.step` is)."""
+    train_step = make_train_step(api, tcfg, mctx)
+
+    def body(params, opt_state, batch):
+        params, new_opt, metrics = train_step(params, opt_state, batch)
+        opt_state.step.copy_(new_opt.step)
+        return params, opt_state, metrics
+
+    held = BIND if donate else LIKE
+    step = StaticStep(body, mctx.device, {
+        "params": held, "opt_state": held,
+        "batch": api.input_specs(shape)})
+    return step if donate else _undonated(step, (0, 1))
+
+
+def jit_prefill_step(api: ModelAPI, mctx: MeshCtx, shape: ShapeConfig):
+    """Returns prefill_step(params, inputs) -> (logits, cache), compiled on
+    the input buffers of `api.input_specs(shape)`."""
+    def body(params, inputs):
+        return api.prefill(params, inputs, mctx)
+    return StaticStep(body, mctx.device, {
+        "params": BIND,
+        "inputs": api.input_specs(shape)})
+
+
+def jit_decode_step(api: ModelAPI, mctx: MeshCtx, shape: ShapeConfig,
+                    donate: bool = True):
+    """Returns decode_step(params, token, pos, cache) -> (logits, cache),
+    compiled on the token, position and cache buffers of
+    `api.input_specs(shape)`. The cache buffer is updated in place and
+    returned (the reference's donate_argnums=(3,)): a call given it makes
+    no copy. Without `donate` the step returns a copy of it."""
+    specs = api.input_specs(shape)
+
+    def body(params, token, pos, cache):
+        logits, new = api.decode(params, {"token": token, "pos": pos}, cache,
+                                 mctx)
+        map_tree(lambda c, n: None if n is c else c.copy_(n), cache, new)
+        return logits, cache
+
+    step = StaticStep(body, mctx.device, {
+        "params": BIND, "token": specs["token"], "pos": specs["pos"],
+        "cache": specs["cache"]})
+    return step if donate else _undonated(step, (1,))

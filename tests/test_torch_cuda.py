@@ -922,3 +922,168 @@ def test_fletcher_from_many_threads_at_once(cuda_device):
     assert len({g.data_ptr() for g in got}) == len(got)
     for i, g in enumerate(got):
         assert _same_bits(g, want[i % len(blocks)]), i
+
+
+# -- compiled steps: CUDA graph replays against eager steps ------------------
+COMPILED_ARCHS = [  # tiny config, its overrides: each family's kernels
+    ("granite-3-2b", dict(head_dim=64, attn_impl="flash")),
+    ("dbrx-132b", dict(head_dim=64, attn_impl="flash")),
+    ("deepseek-v2-236b", dict(attn_impl="flash")),
+    ("recurrentgemma-2b", dict(attn_impl="flash")),
+    ("rwkv6-1.6b", dict(attn_impl="flash")),
+    ("llama-3.2-vision-90b", dict(head_dim=64, attn_impl="flash")),
+    ("whisper-tiny", dict()),
+]
+
+
+def _tiny_on_card(name, over, dev, seed=0):
+    from repro_torch.configs import tiny_config
+    from repro_torch.models.api import ModelAPI
+    from repro_torch.models.context import single_device_ctx
+    from repro_torch.models.params import init_params
+    cfg = tiny_config(name).replace(compute_dtype="bfloat16", **over)
+    api = ModelAPI(cfg)
+    params = init_params(api.param_defs(),
+                         torch.Generator(device=dev).manual_seed(seed))
+    return api, params, single_device_ctx(cfg)
+
+
+def _prefill_inputs(cfg, B, T, dev, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {"tokens": torch.randint(0, cfg.vocab, (B, T), generator=gen,
+                                   device=dev, dtype=torch.int32)}
+    if cfg.family == "vlm":
+        out["vision_embeds"] = torch.randn(
+            (B, cfg.vlm.n_vision_tokens, cfg.vlm.d_vision), generator=gen,
+            device=dev)
+    if cfg.family == "encdec":
+        out["frames"] = torch.randn((B, cfg.encdec.n_frames, cfg.d_model),
+                                    generator=gen, device=dev)
+    return out
+
+
+def _equal_trees(got, want) -> None:
+    from repro_torch.train.trainer import map_tree
+    map_tree(lambda a, b: torch.testing.assert_close(a, b, rtol=0, atol=0),
+             got, want)
+
+
+@pytest.mark.parametrize("name,over", COMPILED_ARCHS)
+def test_compiled_engine_replays_equal_its_eager_steps(cuda_device, name,
+                                                       over):
+    """The engine's captured prefill and decode (bf16, the family's
+    kernels) against its eager steps from the same state: the first
+    wave's logits, every greedy token of two waves and the decode cache,
+    bit for bit; a replay makes no wrapper launch."""
+    from repro_torch.launch.serve import BatchedEngine, Request
+    api, params, mctx = _tiny_on_card(name, over, cuda_device)
+    B, T = 2, 64
+    waves = [_prefill_inputs(api.cfg, B, T, cuda_device, seed)
+             for seed in (1, 2)]
+
+    class Engine(BatchedEngine):
+        def wave_inputs(self, padded, toks):
+            return dict(self.extra, tokens=toks)
+
+    runs = []
+    for compiled in (("prefill", "decode"), ()):
+        eng = Engine(api, params, mctx, B, T, T + 8, compiled=compiled)
+        outs = []
+        for i, inp in enumerate(waves):
+            eng.extra = {k: v for k, v in inp.items() if k != "tokens"}
+            reqs = [Request(r, inp["tokens"][r].cpu().numpy(), 5)
+                    for r in range(B)]
+            before = (fops.launches()["fwd"], rops.launches()["fwd"],
+                      wops.launches()["fwd"])
+            eng.run_wave(reqs)
+            after = (fops.launches()["fwd"], rops.launches()["fwd"],
+                     wops.launches()["fwd"])
+            if compiled and i:
+                assert after == before      # replays go round the wrappers
+            outs.append([r.out for r in reqs])
+        torch.cuda.synchronize()
+        runs.append((outs, eng.cache))
+    assert runs[0][0] == runs[1][0]
+    _equal_trees(runs[0][1], runs[1][1])
+
+
+@pytest.mark.parametrize("name,over", COMPILED_ARCHS)
+def test_jit_decode_step_replay_equals_eager(cuda_device, name, over):
+    """jit_prefill_step's and jit_decode_step's replays against the eager
+    model from the same state, bit for bit: logits and cache after three
+    chained decode steps (the second and third are replays)."""
+    from repro_torch.common.config import ShapeConfig
+    from repro_torch.launch.serve import grow_cache
+    from repro_torch.train.trainer import (jit_decode_step,
+                                           jit_prefill_step, map_tree)
+    api, params, mctx = _tiny_on_card(name, over, cuda_device)
+    cfg, B = api.cfg, 2
+    inp = {k: v for k, v in api.input_specs(ShapeConfig(
+        "p", cfg.encdec.n_frames if cfg.family == "encdec" else 64, B,
+        "prefill")).items()}
+    inp = {k: (torch.randint(0, cfg.vocab, s.shape, device=cuda_device,
+                             dtype=torch.int32) if s.dtype == torch.int32
+               else torch.randn(s.shape, device=cuda_device).to(s.dtype))
+           for k, s in inp.items()}
+    plen = inp["tokens"].shape[1]
+    pre = jit_prefill_step(api, mctx, ShapeConfig("p", plen if cfg.family
+                                                  != "encdec" else
+                                                  cfg.encdec.n_frames, B,
+                                                  "prefill"))
+    dec = jit_decode_step(api, mctx, ShapeConfig("d", plen + 8, B, "decode"))
+    with torch.inference_mode():
+        for _ in range(2):                   # the capture, then a replay
+            logits, cache = pre(params, inp)
+        want_logits, want_cache = api.prefill(params, inp, mctx)
+        torch.testing.assert_close(logits, want_logits, rtol=0, atol=0)
+        eager = grow_cache(want_cache, cfg.family, 8)
+        cache = grow_cache(cache, cfg.family, 8)
+        tok = logits.argmax(-1).to(torch.int32)
+        pos = torch.full((B,), plen, dtype=torch.int32, device=cuda_device)
+        for i in range(3):
+            got, cache = dec(params, tok, pos + i, cache)
+            want, eager = api.decode(params, {"token": tok, "pos": pos + i},
+                                     eager, mctx)
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+            tok = want.argmax(-1).to(torch.int32)
+        _equal_trees(cache, eager)
+    assert dec.calls == 3 and pre.calls == 2
+    assert dec.capture_s > 0
+
+
+def test_jit_train_step_replay_equals_eager(cuda_device):
+    """Three steps of jit_train_step (bf16, the flash forward and backward
+    kernels, 2 microbatches) against make_train_step from the same state,
+    bit for bit: loss, grad norm, params, m and v."""
+    from repro_torch.common.config import ShapeConfig, TrainConfig
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train.optimizer import init_adam
+    from repro_torch.train.trainer import (jit_train_step, make_train_step,
+                                           map_tree)
+    api, params, mctx = _tiny_on_card("granite-3-2b", dict(
+        head_dim=64, attn_impl="flash"), cuda_device)
+    tcfg = TrainConfig(lr=1e-2, total_steps=10, warmup_steps=2,
+                       num_microbatches=2)
+    step = jit_train_step(api, tcfg, mctx, ShapeConfig("t", 64, 4, "train"))
+    eager = make_train_step(api, tcfg, mctx)
+    p_e = map_tree(torch.clone, params)
+    s_e = init_adam(p_e)
+    s_c = init_adam(params)
+    p_c = params
+    gen = np.random.default_rng(5)
+    for i in range(3):
+        toks = gen.integers(0, api.cfg.vocab, (4, 65), dtype=np.int32)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        before = fops.launches()["bwd"]
+        p_c, s_c, m_c = step(p_c, s_c, batch)
+        if i:
+            assert fops.launches()["bwd"] == before
+        p_e, s_e, m_e = eager(p_e, s_e, {k: torch.from_numpy(v).to(
+            cuda_device) for k, v in batch.items()})
+        for key in ("loss", "grad_norm", "lr"):
+            torch.testing.assert_close(m_c[key], m_e[key], rtol=0, atol=0)
+    for a, b in zip(tree_leaves(p_c) + tree_leaves(s_c.m) + tree_leaves(
+            s_c.v), tree_leaves(p_e) + tree_leaves(s_e.m) + tree_leaves(
+            s_e.v)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert int(s_c.step) == 3 and step.calls == 3 and step.copies == 6
