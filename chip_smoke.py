@@ -179,14 +179,31 @@ result):
                same 30 batches, where its loss must fall (at 12 layers the
                reference's init keeps the loss flat in 30 steps: printed);
                then launch/train.py main runs 5 steps through its own
-               command line.
+               command line;
+ 12. mesh      the multi-device layer on a one-rank NCCL group (a
+               HashStore, no port; no gloo, no fallback) and its (data 1,
+               model 1) DeviceMesh: (a) dense-100m at the train phase's
+               shape with zero1, params and moments as DTensors, through
+               the mesh's jit_train_step, captured and replayed 10 times,
+               held bit for bit against the one-device compiled step from
+               the same state on the same batches (metrics every step, the
+               whole state after the last), both replays timed, the
+               capture timed, and a replay of each traced (device
+               operations, device-to-device copies, NCCL kernels); (b)
+               moe_ffn of one dbrx-132b layer at full width on random
+               activations at the prefill wave's 4 x 1024 tokens, with the
+               bf16 and the fp8 wire, eagerly and as a captured graph's
+               replay, each bit for bit the meshless call, the collectives'
+               copies counted in the traces (a one-rank NCCL collective is
+               a device-to-device copy, not a kernel). GPipe needs two
+               stages: the phase says so and has no check of it.
 
 Each kernel's launch counts are zeroed just before the path that drives it
 (rs_matmul: the ec phase; stream_cipher and fletcher: the step on the
 placed stream; flash_attention_fwd: each of the granite, dbrx and VLM
-serve phases, and its launches are their sum; rglru_scan and wkv6: their
-serve phases; flash_attention_bwd: the train phase) and read just after
-it. A wrapper counts the launches it makes itself; a call captured into a
+serve phases and the mesh phase's step, and its launches are their sum;
+rglru_scan and wkv6: their serve phases; flash_attention_bwd: the train
+phase and the mesh phase's step) and read just after it. A wrapper counts the launches it makes itself; a call captured into a
 CUDA graph launches nothing, and each replay of the graph launches what
 the capture recorded, so on the compiled paths a kernel's launches are
 the wrapper's count plus its kernels in each graph (from traced
@@ -3004,6 +3021,251 @@ def train_phase(seed: int, times: dict) -> dict:
     return stats
 
 
+# -- phase 12: the multi-device layer on a one-rank NCCL group -----------------
+MESH_REPLAYS = 10           # replays of phase (a)'s captured steps
+MOE_WAVE = (SERVE_BATCH, SERVE_PLEN)   # the serve phases' prefill wave
+DTOD = "Memcpy DtoD"        # a device-to-device copy's record, as traced
+
+
+def _nccl_mesh():
+    """A one-rank NCCL process group (from a HashStore: no port) and its
+    (data 1, model 1) mesh's context. No gloo, no fallback: a missing
+    NCCL raises."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh_ctx
+    check(dist.is_nccl_available(), "torch.distributed has no NCCL")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            device_id=torch.device("cuda", 0))
+    mctx = make_host_mesh_ctx(get_config("dense-100m"), 1, 1)
+    check(mctx.device_mesh is not None and mctx.device.type == "cuda"
+          and dist.get_backend() == "nccl", f"no NCCL mesh: {mctx}")
+    return mctx
+
+
+def _copies_and_nccl(events) -> tuple:
+    """(device-to-device copies, NCCL kernels by name) in a trace."""
+    copies, nccl = 0, {}
+    for ev in events:
+        if DTOD in ev.key:
+            copies += ev.count
+        elif "nccl" in ev.key.lower() and ev.device_time_total > 0:
+            nccl[ev.key] = ev.count
+    return copies, nccl
+
+
+def mesh_train_check(seed: int, mctx) -> dict:
+    """(a) dense-100m at full width at the train phase's shape (batch 8,
+    seq 256, 2 microbatches, flash, zero1), from one state through the
+    one-device jit_train_step and through the mesh's (params and moments
+    DTensors placed by param_pspecs and zero1_pspecs, the batch by
+    input_pspecs), each captured in its first call and replayed
+    MESH_REPLAYS times on the same batches: metrics (loss, grad norm, lr)
+    every step and the state after the last bit for bit; both steps
+    timed; a replay of each traced."""
+    import torch
+    from repro_torch.common.config import ShapeConfig, TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models.api import ModelAPI
+    from repro_torch.models.context import mesh_ctx, single_device_ctx
+    from repro_torch.models.params import init_params, tree_leaves, tree_map
+    from repro_torch.train.optimizer import init_adam, local
+    from repro_torch.train.trainer import jit_train_step
+
+    cfg = get_config("dense-100m").replace(attn_impl="flash")
+    check(cfg.zero1, "dense-100m without zero1")
+    api = ModelAPI(cfg)
+    ctxs = {"one device": single_device_ctx(cfg),
+            "mesh": mesh_ctx(cfg, mctx.device_mesh)}
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    tcfg = TrainConfig(lr=1e-3, total_steps=TRAIN_STEPS,
+                       warmup_steps=max(1, TRAIN_STEPS // 10),
+                       num_microbatches=TRAIN_MICROBATCHES)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_params(api.param_defs(), gen)
+    rng = np.random.default_rng(seed)
+    batches = []
+    for _ in range(MESH_REPLAYS + 1):
+        toks = rng.integers(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                            dtype=np.int32)
+        batches.append({"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    runs = {}
+    for name, ctx in ctxs.items():
+        p = tree_map(lambda t: t.clone(), params)
+        a = init_adam(p)
+        step = jit_train_step(api, tcfg, ctx, shape)
+        ops.reset_launches()
+        metrics, step_s = [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            p, a, m = step(p, a, b)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            metrics.append((float(m["loss"]), float(m["grad_norm"]),
+                            float(m["lr"])))
+        launched = ops.launches()
+        static = getattr(step, "step", step)
+        check(static.graph is not None, f"{name}: the step was not captured")
+        runs[name] = {"step": step, "params": p, "opt": a,
+                      "metrics": metrics, "step_s": step_s,
+                      "launched": launched, "capture_s": static.capture_s}
+    one, mesh = runs["one device"], runs["mesh"]
+    placed = tree_leaves(mesh["params"]) + tree_leaves(mesh["opt"].m)
+    check(all(hasattr(t, "device_mesh") for t in placed),
+          "the mesh step's params and moments are not DTensors")
+    got = [local(t) for t in tree_leaves(mesh["params"])
+           + tree_leaves(mesh["opt"].m) + tree_leaves(mesh["opt"].v)]
+    want = (tree_leaves(one["params"]) + tree_leaves(one["opt"].m)
+            + tree_leaves(one["opt"].v))
+    identical = (mesh["metrics"] == one["metrics"]
+                 and all(bool(torch.equal(x, y)) for x, y in zip(got, want)))
+    loss_rel, norm_rel = (max(abs(g[i] - w[i]) / abs(w[i]) for g, w in
+                              zip(mesh["metrics"], one["metrics"]))
+                          for i in (0, 1))
+    state_err = max(float((x - y).abs().max()) for x, y in zip(got, want))
+    check(identical, f"mesh step not bit for bit the one-device step: loss "
+          f"{loss_rel} and grad norm {norm_rel} relative, state {state_err}")
+    traces = {}
+    for name, run in runs.items():
+        trace, kernels = graph_kernels(
+            lambda: run["step"](run["params"], run["opt"], batches[0]))
+        events, _ = traced(
+            lambda: run["step"](run["params"], run["opt"], batches[0]))
+        copies, nccl = _copies_and_nccl(events)
+        traces[name] = {"trace": trace, "kernels": kernels,
+                        "dtod_copies": copies, "nccl_kernels": nccl}
+    replay = {name: float(np.median(run["step_s"][1:]))
+              for name, run in runs.items()}
+    fwd, bwd = (traces["mesh"]["kernels"].get(k, 0)
+                for k in ("flash fwd", "flash bwd"))
+    launches = {"fwd": mesh["launched"]["fwd"] + fwd * MESH_REPLAYS,
+                "bwd": mesh["launched"]["bwd"] + bwd // 2 * MESH_REPLAYS}
+    check(launches["fwd"] > 0 and launches["bwd"] > 0,
+          f"the mesh step launched no flash kernel: {launches}")
+    mt = traces["mesh"]
+    print(f"[mesh] (a) dense-100m, zero1, a one-rank NCCL (data 1, model 1) "
+          f"mesh vs one device, {MESH_REPLAYS + 1} steps from one state: "
+          f"bit for bit (metrics and state, every step); replay "
+          f"{replay['mesh']:.6f} s median vs one device "
+          f"{replay['one device']:.6f} s; first step (eager + capture) "
+          f"{mesh['step_s'][0]:.3f} s vs {one['step_s'][0]:.3f} s, capture "
+          f"{mesh['capture_s']:.3f} s vs {one['capture_s']:.3f} s; a traced "
+          f"replay: {mt['trace']['device_ops']} device operations (one "
+          f"device {traces['one device']['trace']['device_ops']}), "
+          f"{mt['dtod_copies']} device-to-device copies (one device "
+          f"{traces['one device']['dtod_copies']}), NCCL kernels "
+          f"{mt['nccl_kernels'] or 'none'}; flash launches {launches}")
+    return {"identical": identical, "replay_s": replay,
+            "first_step_s": {n: r["step_s"][0] for n, r in runs.items()},
+            "capture_s": {n: r["capture_s"] for n, r in runs.items()},
+            "traces": traces, "flash_launches": launches,
+            "metrics": mesh["metrics"]}
+
+
+def mesh_moe_check(seed: int, mctx) -> dict:
+    """(b) moe_ffn of one dbrx-132b layer at full width (float32 params,
+    bf16 compute, the serve moe phase's layer), on random activations at
+    the serve phases' prefill wave (4 x 1024 tokens), with the bf16 and
+    the fp8 wire: on the one-rank NCCL mesh eagerly and as a captured
+    graph's replay, each bit for bit the meshless call; the traces' device
+    copies and NCCL kernels counted, and the three timed."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+    from repro_torch.models.api import ModelAPI
+    from repro_torch.models.context import mesh_ctx, single_device_ctx
+    from repro_torch.models.params import init_params, tree_map
+    from repro_torch.train.trainer import BIND, StaticStep
+
+    full = get_config("dbrx-132b")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    defs = ModelAPI(full.replace(n_layers=1)).param_defs()
+    layer = tree_map(lambda t: t[0], init_params(defs["blocks"]["mlp"], gen))
+    x = torch.randn(*MOE_WAVE, full.d_model, generator=gen, device="cuda",
+                    dtype=torch.float32).to(getattr(torch,
+                                                    full.compute_dtype))
+    out = {}
+    for wire in ("bfloat16", "float8_e4m3fn"):
+        cfg = full.replace(n_layers=1, moe=dataclasses.replace(
+            full.moe, dispatch_dtype=wire))
+        one, mesh = single_device_ctx(cfg), mesh_ctx(cfg, mctx.device_mesh)
+        with torch.inference_mode():
+            want = M.moe_ffn(x, layer, cfg, one)
+            got = M.moe_ffn(x, layer, cfg, mesh)
+        eager_equal = bool(torch.equal(got, want))
+        step = StaticStep(lambda p, h: M.moe_ffn(h, p, cfg, mesh),
+                          mctx.device, {"p": BIND, "x": BIND})
+        with torch.inference_mode():
+            step(layer, x)
+            replayed = step(layer, x).clone()
+        check(step.graph is not None, f"{wire}: moe_ffn was not captured")
+        replay_equal = bool(torch.equal(replayed, want))
+        check(eager_equal and replay_equal, f"moe_ffn on the {wire} wire: "
+              f"mesh eager {eager_equal}, replay {replay_equal} vs meshless")
+        counts = {}
+        with torch.inference_mode():
+            for name, fn in (("meshless", lambda: M.moe_ffn(x, layer, cfg,
+                                                            one)),
+                             ("mesh", lambda: M.moe_ffn(x, layer, cfg, mesh)),
+                             ("replay", lambda: step(layer, x))):
+                events, _ = traced(fn)
+                counts[name] = _copies_and_nccl(events)
+            ms = {"meshless": cuda_ms(lambda: M.moe_ffn(x, layer, cfg, one),
+                                      5),
+                  "mesh": cuda_ms(lambda: M.moe_ffn(x, layer, cfg, mesh), 5),
+                  "replay": cuda_ms(lambda: step(layer, x), 5)}
+        exchanges = counts["mesh"][0] - counts["meshless"][0]
+        check(exchanges > 0 and counts["replay"][0] >= exchanges,
+              f"{wire}: no collective in the traces: {counts}")
+        print(f"[mesh] (b) dbrx-132b moe_ffn, {MOE_WAVE[0]} x {MOE_WAVE[1]} "
+              f"tokens, {wire} wire: mesh eager and replay bit for bit the "
+              f"meshless call; device-to-device copies a call: meshless "
+              f"{counts['meshless'][0]}, mesh {counts['mesh'][0]} (the "
+              f"one-rank group's all_to_all_single x 3 and all-gather), "
+              f"replay {counts['replay'][0]}; NCCL kernels: "
+              f"{counts['mesh'][1] or 'none (a one-rank NCCL collective is a device copy)'}"
+              f"; ms a call: meshless {ms['meshless']:.3f}, mesh "
+              f"{ms['mesh']:.3f}, replay {ms['replay']:.3f}, capture "
+              f"{step.capture_s:.3f} s")
+        out[wire] = {"eager_equal": eager_equal, "replay_equal": replay_equal,
+                     "dtod_copies": {k: v[0] for k, v in counts.items()},
+                     "nccl_kernels": {k: v[1] for k, v in counts.items()},
+                     "collective_copies": exchanges, "ms": ms,
+                     "capture_s": step.capture_s}
+        del step, want, got, replayed
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_phase(seed: int, times: dict) -> dict:
+    """The multi-device layer driven on the card through a one-rank NCCL
+    group: (a) the DTensor/ZeRO-1 train step, (b) expert parallelism's
+    collectives in moe_ffn. GPipe needs two stages and has no card
+    check."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mctx = _nccl_mesh()
+    try:
+        train = mesh_train_check(seed, mctx)
+        times["mesh_train_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        moe = mesh_moe_check(seed, mctx)
+        times["mesh_moe_s"] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    print("[mesh] GPipe (distributed/pipeline.py) needs two stages, so one "
+          "card has no check of it: tests/test_torch_multidevice.py holds it "
+          "against the sequential forward on gloo ranks")
+    return {"train": train, "moe": moe}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3132,6 +3394,10 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         train = train_phase(args.seed, times)
         times["train_phase_s"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        mesh = mesh_phase(args.seed, times)
+        times["mesh_phase_s"] = time.perf_counter() - t0
         torch.cuda.synchronize()
     except Exception:
         traceback.print_exc()
@@ -3148,10 +3414,13 @@ def main(argv=None) -> int:
                         (VLM, vlm_serve), (WHISPER, whisper_serve)):
         print(f"serve {arch}:", json.dumps(stats))
     print("train:", json.dumps(train))
+    print("mesh:", json.dumps(mesh))
     # flash_attention_fwd's serve paths, each counted from 0 just before it
     flash_paths = {"granite-3-2b": serve["flash_launches"],
                    "dbrx-132b": moe_serve["dbrx-132b"]["flash_launches"],
-                   VLM: vlm_serve["flash_launches"]}
+                   VLM: vlm_serve["flash_launches"],
+                   "dense-100m mesh train": mesh["train"]["flash_launches"][
+                       "fwd"]}
     for arch, leg in flash["d128"].items():
         leg["launches"] = flash_paths[arch]
     bwd = flash_bwd["shapes"]["train"]
@@ -3177,7 +3446,12 @@ def main(argv=None) -> int:
         "floor_ms": flash["floor_ms"], "floor_call_ms": flash["floor_call_ms"],
         "bf16_kernels": tensor_cores["flash_attention_fwd"]}, {
         "name": "flash_attention_bwd", "route": "cuda", "source": FKB.SOURCE,
-        "replaces": FKB.REPLACES, "launches": train["flash_launches"]["bwd"],
+        "replaces": FKB.REPLACES,
+        "launches": (train["flash_launches"]["bwd"]
+                     + mesh["train"]["flash_launches"]["bwd"]),
+        "launches_by_path": {
+            "train": train["flash_launches"]["bwd"],
+            "mesh train": mesh["train"]["flash_launches"]["bwd"]},
         "max_abs_err": flash_bwd["max_abs_err"], "ms": bwd["ms"],
         "call_ms": bwd["call_ms"], "plain_ms": bwd["plain_ms"],
         "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],

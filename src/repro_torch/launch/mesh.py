@@ -1,16 +1,50 @@
-"""Device context construction for the launch entry points.
+"""Mesh construction for the launch entry points, the counterpart of
+`repro/launch/mesh.py`.
 
-One card for now: `make_host_mesh_ctx` returns the one-device context. The
-production meshes (and the reference's TPU roofline constants) wait for
-the multi-device and roofline slices (ROADMAP Queue 1).
+Functions, not module-level constants: importing this module touches no
+process group. The production meshes are (16, 16) over ("data",
+"model") and (2, 16, 16) over ("pod", "data", "model"); their shapes
+(`production_mesh_shape`) are all the spec functions need. The roofline's
+hardware constants are the H100's, and come with the roofline slice
+(ROADMAP Queue 1); the reference's TPU v5e figures are not carried over.
 """
 from __future__ import annotations
 
-from repro_torch.device import DeviceLike
-from repro_torch.models.context import MeshCtx, single_device_ctx
+from typing import Optional
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.context import (MeshCtx, make_mesh, mesh_ctx,
+                                        single_device_ctx)
+from repro_torch.models.params import MeshShape
 
 
-def make_host_mesh_ctx(cfg, device: DeviceLike = None) -> MeshCtx:
-    """The context on one local device (the CUDA card unless the caller
-    asks for the CPU)."""
-    return single_device_ctx(cfg, device)
+def production_mesh_shape(*, multi_pod: bool = False) -> MeshShape:
+    if multi_pod:
+        return MeshShape(("pod", "data", "model"), (2, 16, 16))
+    return MeshShape(("data", "model"), (16, 16))
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The production DeviceMesh on the cards, over an initialised NCCL
+    process group of 256 (or, multi-pod, 512) ranks."""
+    ms = production_mesh_shape(multi_pod=multi_pod)
+    return make_mesh(ms.shape, ms.axis_names)
+
+
+def make_mesh_ctx(cfg, *, multi_pod: bool = False) -> MeshCtx:
+    return mesh_ctx(cfg, make_production_mesh(multi_pod=multi_pod))
+
+
+def make_host_mesh_ctx(cfg, data: Optional[int] = None,
+                       model: Optional[int] = None,
+                       device: DeviceLike = None) -> MeshCtx:
+    """On `device` (the CUDA card unless the caller asks for the CPU):
+    with `data` or `model` given, a (data, model) mesh over the
+    initialised process group, whose backend must serve that device (NCCL
+    for the card); otherwise the one-device context, as the launch entry
+    points use."""
+    if data is None and model is None:
+        return single_device_ctx(cfg, device)
+    mesh = make_mesh((data or 1, model or 1), ("data", "model"),
+                     resolve_device(device).type)
+    return mesh_ctx(cfg, mesh)

@@ -12,9 +12,9 @@ with `moe.py`), hybrid (`recurrent.py`), ssm (`rwkv.py`), vlm (`vlm.py`)
 and encdec (`encdec.py`). Inputs may be tensors or arrays; arrays are
 placed on the API's device, the CUDA card unless the caller asks for the
 CPU. `input_specs` gives the static buffers of the compiled steps
-(`train/trainer.py` `jit_*`). The reference's sharding specs
-(`cache_pspecs`, `input_pspecs`) wait for the multi-device and dry-run
-items of ROADMAP Queue 1.
+(`train/trainer.py` `jit_*`); `cache_pspecs` and `input_pspecs` their
+specs on a mesh, the reference's, and `shardings_for` those specs fitted
+to the shapes (non-divisible dims replicated).
 """
 from __future__ import annotations
 
@@ -26,6 +26,7 @@ import torch
 from repro_torch.common.config import ModelConfig, ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.context import MeshCtx
+from repro_torch.models.params import fit_spec, spec
 from repro_torch.models.transformer import CacheSpec
 
 DEC_PRIME = 448          # decoder token budget for enc-dec cells
@@ -103,6 +104,76 @@ class ModelAPI:
                                 dtype)
         return m.cache_spec(cfg, batch, seq_len, dtype)
 
+    def cache_pspecs(self, mctx: MeshCtx):
+        """Specs of `cache_specs`' leaves: the batch over the data axes,
+        kv heads (or the recurrent width) over "model" where it divides;
+        with `cache_seq_shard`, the sequence dim over "model" where the
+        heads cannot take it (MLA's latent cache has no head dim)."""
+        cfg, fam = self.cfg, self.cfg.family
+        b = mctx.batch_axes
+        tp = mctx.tp_size()
+
+        def kh(n):
+            return "model" if (tp > 1 and n % tp == 0) else None
+
+        def sq(heads):
+            return ("model" if (heads is None and cfg.cache_seq_shard
+                                and tp > 1) else None)
+
+        if fam in ("dense", "moe"):
+            if cfg.mla is not None:
+                q = "model" if (cfg.cache_seq_shard and tp > 1) else None
+                return {"ckv": spec(None, b, q, None),
+                        "krope": spec(None, b, q, None)}
+            heads = kh(cfg.n_kv_heads)
+            s = spec(None, b, sq(heads), heads, None)
+            return {"k": s, "v": s}
+        if fam == "hybrid":
+            r = kh(cfg.hybrid.d_rnn or cfg.d_model)
+            kv = kh(cfg.n_kv_heads)
+            out = {"super": {
+                "rec": {"h": spec(None, None, b, r),
+                        "conv": spec(None, None, b, None, r)},
+                "attn": {"k": spec(None, b, None, kv, None),
+                         "v": spec(None, b, None, kv, None),
+                         "kpos": spec(None, b, None)}}}
+            _, n_tail = self._m.pattern(cfg)
+            out["tail"] = ({"h": spec(None, b, r),
+                            "conv": spec(None, b, None, r)}
+                           if n_tail else None)
+            return out
+        if fam == "ssm":
+            h = kh(cfg.d_model // cfg.rwkv.head_dim)
+            return {"tmix": {"shift": spec(None, b, None),
+                             "s": spec(None, b, h, None, None)},
+                    "cmix": {"shift": spec(None, b, None)}}
+        heads = kh(cfg.n_kv_heads)
+        if fam == "vlm":
+            s = spec(None, None, b, sq(heads), heads, None)
+            c = spec(None, b, sq(heads), heads, None)
+            return {"self": {"k": s, "v": s}, "cross": {"k": c, "v": c}}
+        if fam == "encdec":
+            s = spec(None, b, sq(heads), heads, None)
+            return {"self": {"k": s, "v": s}, "cross": {"k": s, "v": s}}
+        raise ValueError(fam)
+
+    def input_pspecs(self, mctx: MeshCtx, shape: ShapeConfig):
+        """Specs of `input_specs(shape)`: every input's batch over the data
+        axes, a decode step's cache by `cache_pspecs`."""
+        fam = self.cfg.family
+        b = mctx.batch_axes
+        if shape.kind == "decode":
+            return {"token": spec(b), "pos": spec(b),
+                    "cache": self.cache_pspecs(mctx)}
+        out = {"tokens": spec(b, None)}
+        if shape.kind == "train":
+            out["labels"] = spec(b, None)
+        if fam == "vlm":
+            out["vision_embeds"] = spec(b, None, None)
+        if fam == "encdec":
+            out["frames"] = spec(b, None, None)
+        return out
+
     def input_specs(self, shape: ShapeConfig) -> Dict[str, Any]:
         """Shapes and dtypes of a step's inputs at `shape` (no
         allocation): tokens and labels to train, tokens to prefill (with
@@ -129,3 +200,15 @@ class ModelAPI:
         if shape.kind == "train":
             out["labels"] = CacheSpec(tokens, torch.int32)
         return out
+
+
+def shardings_for(mesh, specs, pspecs):
+    """The specs `pspecs` fitted to the shapes of `specs` (a tree of
+    CacheSpecs or tensors): each dim the mesh axes do not divide is
+    replicated. `models.params.placements` turns one into DTensor
+    placements."""
+    if isinstance(specs, dict):
+        return {k: shardings_for(mesh, v, pspecs[k]) for k, v in specs.items()}
+    if specs is None:
+        return None
+    return fit_spec(specs.shape, pspecs, mesh)

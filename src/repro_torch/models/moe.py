@@ -1,5 +1,6 @@
 """Mixture-of-Experts FFN, the counterpart of `repro/models/moe.py`
-`moe_ffn`, on one device.
+`moe_ffn`: token-choice routing with expert parallelism over the mesh's
+"model" axis.
 
 Token-choice routing with the reference's exact semantics: router logits
 and softmax in float32, top-k with the lower expert index first on ties,
@@ -8,16 +9,30 @@ slot in its destination's buffer by a cumulative one-hot count in (token,
 k) order, up to `cap` a destination; the second level groups the received
 assignments by local expert, up to `cap2` an expert, and drops the rest.
 Dropped assignments contribute zero and their gate weight is lost, as in
-Switch/DBRX-style implementations.
+Switch/DBRX-style implementations. Capacities depend on the number of
+ranks `ep` along "model", as in the reference.
 
-On one device the expert-parallel group is one rank (ep = 1), so the two
-all_to_alls are identities. The payload still travels in
-`moe.dispatch_dtype` both ways: each value is rounded to it and back, with
-the reference's float8_e4m3fn rule (`to_dispatch`). The reference drops an
-assignment by writing it at an out-of-bounds slot (`mode="drop"`), which
-on a CUDA tensor would be a device-side assert; the port writes it to a
-spare row past the end of the buffer and cuts that row off (`_scatter`),
-which needs no host sync.
+With a mesh, `moe_ffn` is the body of the reference's shard_map, run by
+every rank on its own block of the batch (x is this rank's local
+block): model rank r
+routes token slice r of the block, sends each assignment to the rank
+holding its expert with `all_to_all_single` over the "model" group (the
+payload and the local expert ids), runs its e_per experts, sends the
+results back the same way and all-gathers the slices' outputs
+(`all_gather_into_tensor`). The payload keeps `moe.dispatch_dtype` on the
+wire both ways, moved as its bytes (an fp8 tensor viewed as uint8). This
+holds whatever ep is: on a one-rank group the exchanges are real
+collectives. Both exchanges are differentiable (the transpose of an
+all-to-all is the reverse all-to-all; that of the all-gather sums every
+rank's gradient of this rank's slice).
+
+Without a mesh (ep = 1) the exchanges are identities, but the payload is
+still rounded to the dispatch dtype and back, with the reference's
+float8_e4m3fn rule (`to_dispatch`). The reference drops an assignment by
+writing it at an out-of-bounds slot (`mode="drop"`), which on a CUDA
+tensor would be a device-side assert; the port writes it to a spare row
+past the end of the buffer and cuts that row off (`_scatter`), which
+needs no host sync.
 """
 from __future__ import annotations
 
@@ -25,6 +40,7 @@ import math
 from typing import Any, Dict
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.common.config import ModelConfig
@@ -54,11 +70,49 @@ def to_dispatch(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return torch.where(xf.abs() > FP8_E4M3FN_NAN_ABOVE, nan, xf).to(dtype)
 
 
-def _all_to_all(x: torch.Tensor) -> torch.Tensor:
-    """The exchange over the expert-parallel group: the identity at ep = 1.
-    The multi-device item of ROADMAP Queue 1 ("Multi-device") replaces it
-    with torch.distributed's all_to_all_single."""
-    return x
+def _exchange(x: torch.Tensor, group) -> torch.Tensor:
+    """x (n, ...), block j sent to rank j of `group`, the blocks received
+    in rank order; moved as bytes, whatever the dtype."""
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out.view(torch.uint8), x.view(torch.uint8),
+                           group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """`_exchange`, whose transpose is itself."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.group), None
+
+
+class _AllGather(torch.autograd.Function):
+    """The ranks' (n, ...) blocks of `group` stacked in rank order along
+    dim 0; the gradient of a rank's block is the sum of every rank's
+    gradient of it (an all-to-all of the blocks and a sum, which every
+    backend has)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        n = dist.get_world_size(group)
+        out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+        dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        n = dist.get_world_size(ctx.group)
+        blocks = _exchange(g.reshape((n, -1) + tuple(g.shape[1:])),
+                           ctx.group)
+        return blocks.sum(0), None
 
 
 def _expert_mlp(buf: torch.Tensor, we: Dict[str, torch.Tensor],
@@ -97,24 +151,38 @@ def _scatter(n: int, slot: torch.Tensor, ok: torch.Tensor,
 
 def moe_ffn(x: torch.Tensor, p: Dict[str, Any], cfg: ModelConfig,
             mctx: MeshCtx) -> torch.Tensor:
-    """x (B, S, D) -> (B, S, D). p is one layer's MoE param slice."""
+    """x (B, S, D) -> (B, S, D). p is one layer's MoE param slice, whole
+    (every expert); on a mesh x is this rank's block of the batch, and
+    model rank r runs experts [r * e_per, (r + 1) * e_per)."""
     mc = cfg.moe
-    ep = mctx.tp_size() if mctx is not None else 1
-    if ep != 1:
-        raise NotImplementedError(
-            "expert parallelism over more than one device waits for the "
-            "multi-device item of ROADMAP Queue 1")
+    mesh = None if mctx is None else mctx.device_mesh
+    ep = 1 if mesh is None else mctx.tp_size()
+    if mc.n_experts % ep:
+        raise ValueError(f"{mc.n_experts} experts over {ep} model ranks")
     e_per = mc.n_experts // ep
+    r = 0 if mesh is None else mctx.coordinate("model")
+    group = None if mesh is None else mctx.group("model")
     cdt = x.dtype
     ddt = getattr(torch, mc.dispatch_dtype)
     K = mc.top_k
     B, S, D = x.shape
     T = B * S
-    Tl = _round_up(max(T, ep), ep) // ep
+    T_pad = _round_up(max(T, ep), ep)
+    Tl = T_pad // ep
     cap = _round_up(int(math.ceil(K * Tl * mc.capacity_factor / ep)), 8)
     cap2 = cap * ep if e_per == 1 else min(
         cap * ep, _round_up(int(math.ceil(cap * ep / e_per * 2.0)), 8))
-    xs = x.reshape(T, D)
+    xt = x.reshape(T, D)
+    if T_pad != T:
+        xt = F.pad(xt, (0, 0, 0, T_pad - T))
+    xs = xt[r * Tl:(r + 1) * Tl]                                # (Tl, D)
+
+    def wire(t: torch.Tensor) -> torch.Tensor:
+        """t (ep, cap, ...) in the dispatch dtype, exchanged over the
+        model group and back in cdt (without a mesh, only the cast)."""
+        if mesh is not None:
+            t = _AllToAll.apply(t, group)
+        return t.to(cdt)
 
     # --- routing (float32) ---
     logits = xs.float() @ p["router"].float()                   # (Tl, E)
@@ -131,14 +199,18 @@ def moe_ffn(x: torch.Tensor, p: Dict[str, Any], cfg: ModelConfig,
     pos = _slots(dest, ep)
     keep = pos < cap
     xa = xs[:, None, :].expand(Tl, K, D).reshape(-1, D)
-    # the payload is rounded to the dispatch dtype and back: the values
-    # the reference's send buffer holds after its cast back to cdt
-    wire = to_dispatch(xa, ddt).to(cdt)
+    # the payload is rounded to the dispatch dtype: the values the
+    # reference's send buffer holds
+    payload = to_dispatch(xa, ddt).to(cdt)
     slot = dest * cap + pos
-    send_x = _scatter(ep * cap, slot, keep, wire).reshape(ep, cap, D)
+    send_x = _scatter(ep * cap, slot, keep, payload).reshape(ep, cap, D)
     send_le = _scatter(ep * cap, slot, keep, le, fill=-1).reshape(ep, cap)
-    rx = _all_to_all(send_x).reshape(ep * cap, D)
-    rle = _all_to_all(send_le).reshape(ep * cap)
+    if mesh is None:
+        rx = send_x.reshape(ep * cap, D)
+        rle = send_le.reshape(ep * cap)
+    else:
+        rx = wire(send_x.to(ddt)).reshape(ep * cap, D)
+        rle = _AllToAll.apply(send_le, group).reshape(ep * cap)
 
     # --- second-level dispatch: local expert grouping ---
     pos2 = _slots(rle, e_per)
@@ -146,13 +218,14 @@ def moe_ffn(x: torch.Tensor, p: Dict[str, Any], cfg: ModelConfig,
     le_c = torch.where(valid2, rle, 0)
     buf = _scatter(e_per * cap2, le_c * cap2 + pos2, valid2,
                    rx).reshape(e_per, cap2, D)
-    y_buf = _expert_mlp(buf, {k: v.to(cdt) for k, v in p["experts"].items()},
-                        cfg.act)
+    we = {k: v[r * e_per:(r + 1) * e_per].to(cdt)
+          for k, v in p["experts"].items()}
+    y_buf = _expert_mlp(buf, we, cfg.act)
 
     # --- reverse path (same wire format) ---
     pos2_c = torch.where(valid2, pos2, 0)
     y_tok = to_dispatch(y_buf[le_c, pos2_c] * valid2[:, None].to(cdt), ddt)
-    back = _all_to_all(y_tok.to(cdt)).reshape(ep, cap, D)
+    back = wire(y_tok.reshape(ep, cap, D))
     pos_c = torch.where(keep, pos, 0)
     ya = back[dest, pos_c] * keep[:, None].to(cdt)              # (Tl*K, D)
     out = torch.sum(ya.reshape(Tl, K, D) * gates[..., None].to(cdt), dim=1)
@@ -160,4 +233,6 @@ def moe_ffn(x: torch.Tensor, p: Dict[str, Any], cfg: ModelConfig,
     if "shared" in p:
         out = out + L.mlp(xs, {k: v.to(cdt) for k, v in p["shared"].items()},
                           cfg.act)
+    if mesh is not None:
+        out = _AllGather.apply(out, group)[:T]                  # (T, D)
     return out.reshape(B, S, D)

@@ -5,21 +5,30 @@ where `axes` are logical axis names, as in the reference
 (`repro/models/params.py`). Params are nested dicts of tensors with the
 reference's key paths and shapes, the stacked layer axis first.
 
-The sharding rules (`DEFAULT_RULES`, the pspec functions) wait for the
-multi-device slice; on one card `axes` are carried but not read.
+A rules table maps logical axes to mesh axes (`DEFAULT_RULES`), giving a
+spec per leaf: a tuple shaped like the reference's PartitionSpec, one
+entry a dim, each `None`, a mesh axis name or a tuple of names. A dim
+whose size the mesh axes do not divide is replicated (MQA's kv = 1,
+whisper's 51865 vocab, 10-head attention). The spec functions read only
+a mesh's axis names and sizes (`MeshShape`, or a DeviceMesh), so they run
+on a mesh that no process group backs; `placements` turns a spec into
+DTensor placements on a real `DeviceMesh`.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                      distribute_tensor)
 
 from repro_torch.device import DeviceLike, resolve_device
 
 Axes = Tuple[Optional[str], ...]
+Spec = Tuple[Union[None, str, Tuple[str, ...]], ...]
 
 
 @dataclass
@@ -138,3 +147,149 @@ def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
     """The reverse of `params_from_numpy`: numpy arrays on the host, with
     bfloat16 leaves as ml_dtypes arrays."""
     return tree_map(_to_numpy, params)
+
+
+# ---------------------------------------------------------------------------
+# Logical-axis -> mesh-axis rules
+
+# Default rules for the ("pod", "data", "model") production mesh. "batch"-like
+# logical axes map to the compound data-parallel axes; model-parallel axes map
+# to "model". A logical axis absent here is replicated.
+DEFAULT_RULES: Dict[str, Union[str, Tuple[str, ...]]] = {
+    "batch": ("pod", "data"),
+    "zero": ("pod", "data"),        # ZeRO-1 optimizer-state sharding axis
+    "vocab": "model",
+    "heads": "model",
+    "kv_heads": "model",
+    "mlp": "model",
+    "experts": "model",
+    "rnn": "model",
+    "embed": None,                   # residual stream replicated under TP
+    "seq": None,
+    "sp_seq": "data",               # sequence-parallel prefill (opt-in)
+}
+
+
+class MeshShape(NamedTuple):
+    """A mesh's axis names and sizes, with no devices behind it: what the
+    spec functions read."""
+    axis_names: Tuple[str, ...]
+    shape: Tuple[int, ...]
+
+
+def mesh_shape(mesh) -> MeshShape:
+    """The MeshShape of a MeshShape or a torch DeviceMesh."""
+    if isinstance(mesh, MeshShape):
+        return mesh
+    return MeshShape(tuple(mesh.mesh_dim_names), tuple(mesh.shape))
+
+
+def _names(p) -> Tuple[str, ...]:
+    if p is None:
+        return ()
+    return tuple(p) if isinstance(p, (tuple, list)) else (p,)
+
+
+def spec(*parts) -> Spec:
+    """A spec from its entries, a one-name tuple written as the name, as
+    PartitionSpec normalises it."""
+    return tuple(p[0] if isinstance(p, (tuple, list)) and len(p) == 1
+                 else (tuple(p) if isinstance(p, list) else p)
+                 for p in parts)
+
+
+def _mesh_axes_size(mesh, axes) -> int:
+    """The product of the sizes of mesh axes `axes` (an axis the mesh
+    lacks counts 1)."""
+    sizes = dict(zip(*mesh_shape(mesh)))
+    return math.prod(sizes.get(a, 1) for a in _names(axes))
+
+
+def spec_for(mesh, axes: Axes, shape: Tuple[int, ...],
+             rules: Optional[Dict[str, Any]] = None) -> Spec:
+    """The spec of one leaf. Replicates any non-divisible dim."""
+    rules = rules or DEFAULT_RULES
+    return fit_spec(shape, tuple(None if ax is None else rules.get(ax)
+                                 for ax in axes), mesh)
+
+
+def param_pspecs(defs: Dict[str, Any], mesh, rules=None):
+    """The spec tree mirroring a ParamDef tree."""
+    return tree_map(lambda d: spec_for(mesh, d.axes, d.shape, rules), defs)
+
+
+def zero1_pspecs(defs: Dict[str, Any], mesh, rules=None):
+    """Optimizer-moment specs: the param specs, with the largest
+    not-yet-sharded divisible dim also sharded over the data axes that the
+    param's own spec leaves free (ZeRO-1)."""
+    rules = rules or DEFAULT_RULES
+    names = mesh_shape(mesh).axis_names
+    zaxes = tuple(a for a in _names(rules.get("zero", ("pod", "data")))
+                  if a in names)
+
+    def one(d: ParamDef) -> Spec:
+        base = spec_for(mesh, d.axes, d.shape, rules)
+        used = {a for p in base for a in _names(p)}
+        avail = tuple(a for a in zaxes if a not in used)
+        asize = _mesh_axes_size(mesh, avail)
+        if not avail or asize <= 1:
+            return base
+        cand = [(dim, i) for i, (dim, p) in enumerate(zip(d.shape, base))
+                if p is None and dim % asize == 0]
+        if not cand:
+            return base
+        parts = list(base)
+        parts[max(cand)[1]] = avail
+        return spec(*parts)
+
+    return tree_map(one, defs)
+
+
+def fit_spec(shape: Sequence[int], s: Optional[Spec], mesh) -> Spec:
+    """`s` padded with None to len(shape), each entry's mesh axes cut to
+    those of `mesh` (no "pod" on a single-pod mesh) and kept only if they
+    divide the dim, the rest replicated (the reference's `spec_for`,
+    `constraint` and `shardings_for`)."""
+    names = mesh_shape(mesh).axis_names
+    s = tuple(s or ()) + (None,) * (len(shape) - len(tuple(s or ())))
+    parts = []
+    for dim, p in zip(shape, s):
+        axes = tuple(a for a in _names(p) if a in names)
+        n = _mesh_axes_size(mesh, axes)
+        parts.append(axes if n > 1 and dim % n == 0 else None)
+    return spec(*parts)
+
+
+def placements(s: Spec, mesh) -> list:
+    """DTensor placements of spec `s` on `mesh`: Shard(dim) on each mesh
+    dim that shards tensor dim `dim`, Replicate() elsewhere. A dim split
+    over several mesh dims takes them major to minor, which is the
+    PartitionSpec's order only when it follows the mesh's."""
+    names = mesh_shape(mesh).axis_names
+    out = [Replicate()] * len(names)
+    for dim, p in enumerate(s):
+        idx = [names.index(a) for a in _names(p)]
+        if idx != sorted(idx):
+            raise ValueError(f"spec {s}: mesh axes {p} out of the mesh's "
+                             f"order {names}")
+        for i in idx:
+            out[i] = Shard(dim)
+    return out
+
+
+def param_shardings(defs: Dict[str, Any], mesh, rules=None):
+    """DTensor placements on `mesh` (a DeviceMesh) mirroring a ParamDef
+    tree."""
+    return tree_map(lambda s: placements(s, mesh),
+                    param_pspecs(defs, mesh, rules))
+
+
+def place(t, mesh, pl: tuple):
+    """`t` as a DTensor on `mesh` (a DeviceMesh) at placements `pl`. A
+    DTensor is redistributed (returned as it is if already there); any
+    other tensor or array is the global value, of which each rank keeps
+    its own shard with no communication."""
+    if isinstance(t, DTensor):
+        return t if t.placements == pl else t.redistribute(mesh, pl)
+    return distribute_tensor(torch.as_tensor(t), mesh, list(pl),
+                             src_data_rank=None)

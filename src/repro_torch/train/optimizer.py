@@ -4,8 +4,15 @@ math (`repro/train/optimizer.py`), not `torch.optim`.
 Params are nested dicts of tensors; the moments mirror them in float32.
 `adamw_update` updates params and moments in place under
 `torch.no_grad()`, the counterpart of the reference's `donate_argnums=(0,
-1)`, and returns them. ZeRO-1 sharding of the moments waits for the
-multi-device slice.
+1)`, and returns them.
+
+On a mesh params, gradients and moments are DTensors: params in their
+own placements, gradients and moments in the moments' (`zero1_pspecs`
+shards them over the data axes too, ZeRO-1). The update runs on each
+rank's local shards; a param sharded less than its moments is read at
+the moments' placement (a local slice) and its new value all-gathered
+back into its own (DTensor's redistribution). The global grad norm sums
+every rank's shards, each element counted once over the mesh.
 """
 from __future__ import annotations
 
@@ -13,6 +20,8 @@ import math
 from typing import Any, NamedTuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.common.config import TrainConfig
 from repro_torch.models.params import tree_leaves, tree_map
@@ -42,9 +51,35 @@ def lr_schedule(tcfg: TrainConfig, step: torch.Tensor) -> torch.Tensor:
     return tcfg.lr * warm * cos
 
 
+def local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (sharing its storage); any other tensor."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _copies(t: torch.Tensor) -> int:
+    """How many ranks hold each element of `t`: the sizes of the mesh dims
+    it is replicated over (1 for a plain tensor)."""
+    if not isinstance(t, DTensor):
+        return 1
+    n = 1
+    for size, p in zip(t.device_mesh.shape, t.placements):
+        n *= size if p.is_replicate() else 1
+    return n
+
+
 def global_norm(tree) -> torch.Tensor:
-    leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+    """The l2 norm over every leaf. On a mesh each rank sums its shards,
+    divided by their number of copies, and one all-reduce over the mesh
+    (the default process group) adds the ranks' sums."""
+    leaves = tree_leaves(tree)
+    sums = [torch.sum(torch.square(local(x).float())) for x in leaves]
+    if isinstance(leaves[0], DTensor):
+        sums = [s / n if n > 1 else s for s, n in zip(sums, map(_copies,
+                                                                leaves))]
+        total = torch.sum(torch.stack(sums))
+        dist.all_reduce(total)
+        return torch.sqrt(total)
+    return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
 @torch.no_grad()
@@ -62,13 +97,22 @@ def adamw_update(grads, state: AdamState, params, tcfg: TrainConfig):
     bc2 = 1.0 - b2 ** step.float()
 
     def upd(g, m, v, p):
+        pm = p
+        if isinstance(p, DTensor) and p.placements != m.placements:
+            pm = p.redistribute(p.device_mesh, m.placements)
+        g, m, v, new = local(g), local(m), local(v), local(pm)
         g = g.float() * clip
         m.mul_(b1).add_((1 - b1) * g)
         v.mul_(b2).add_((1 - b2) * torch.square(g))
         delta = (m / bc1) / (torch.sqrt(v / bc2) + tcfg.eps)
         if p.dim() >= 2:  # decoupled weight decay on matrices only
-            delta = delta + tcfg.weight_decay * p.float()
-        p.copy_(p.float() - lr * delta)
+            delta = delta + tcfg.weight_decay * new.float()
+        new = new.float() - lr * delta
+        if pm is not p:   # ZeRO-1's all-gather into the param's placement
+            new = DTensor.from_local(new.to(p.dtype), p.device_mesh,
+                                     pm.placements).redistribute(
+                p.device_mesh, p.placements).to_local()
+        local(p).copy_(new)
 
     tree_map(upd, grads, state.m, state.v, params)
     return params, AdamState(step, state.m, state.v), {"grad_norm": gnorm,

@@ -12,8 +12,22 @@ on one device (`StaticStep`): its inputs live in static buffers made from
 a CUDA graph and replayed on every later call, one host call a step as an
 XLA executable is. Donation (`donate_argnums`) becomes an update of those
 buffers in place. On the CPU the same body runs eagerly on the same
-buffers. The reference's shardings wait for the multi-device slice
-(ROADMAP Queue 1, "Multi-device").
+buffers.
+
+On a mesh (`MeshCtx.device_mesh`) the steps take the reference's
+shardings: params as DTensors placed by `param_pspecs`, AdamW moments by
+`zero1_pspecs` (with `cfg.zero1`), inputs by `input_pspecs` and a decode
+cache by `cache_pspecs`; whatever a call is given is placed there first
+(`models.params.place`: a global tensor is cut into each rank's shard
+with no communication). Inside the body each rank computes on its batch
+shard with the params gathered whole, and the model runs replicated over
+"model" but where it shards work itself (the experts of `moe_ffn`). The
+loss and gradients come out as each rank's part of the mesh's: scaled by
+1/ranks, they are summed over the mesh, the gradients straight into the
+moments' placement (a reduce-scatter over the data axes), and the update
+all-gathers each param back into its own placement. The metrics are
+replicated. StaticStep captures and replays the body on the DTensors'
+local tensors, with its collectives.
 """
 from __future__ import annotations
 
@@ -23,13 +37,17 @@ from typing import Any, Callable, Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from repro_torch.common.config import ShapeConfig, TrainConfig
-from repro_torch.models.api import ModelAPI
+from repro_torch.models.api import ModelAPI, shardings_for
 from repro_torch.models.context import MeshCtx
-from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.models.params import (fit_spec, param_pspecs, place,
+                                       placements, spec, tree_leaves,
+                                       tree_map, zero1_pspecs)
 from repro_torch.models.transformer import CacheSpec
-from repro_torch.train.optimizer import AdamState, adamw_update
+from repro_torch.train.optimizer import AdamState, adamw_update, local
 
 
 # ---------------------------------------------------------------------------
@@ -54,12 +72,71 @@ def decompress_int8(qtree):
 # Train step
 
 def _microbatch(batch: Dict[str, Any], nmb: int, mctx: MeshCtx):
-    """(B, ...) -> (nmb, B/nmb, ...)."""
+    """(B, ...) -> (nmb, B/nmb, ...), each microbatch over the data axes
+    (on a mesh, a redistribution of the batch's DTensors), as this rank's
+    local tensors."""
     def one(x):
         assert x.shape[0] % nmb == 0, (x.shape, nmb)
         y = x.reshape((nmb, x.shape[0] // nmb) + tuple(x.shape[1:]))
-        return mctx.constraint(y)
+        return local(mctx.constraint(
+            y, spec(None, mctx.batch_axes, *([None] * (y.dim() - 2)))))
     return {k: one(v) for k, v in batch.items()}
+
+
+def _compute_params(params, mctx: MeshCtx):
+    """The params this rank computes with: on a mesh each leaf gathered
+    whole (an all-gather where it is sharded)."""
+    if mctx.device_mesh is None:
+        return params
+    return tree_map(lambda p: p.full_tensor().detach(), params)
+
+
+def _model_replicated(pl, mesh) -> list:
+    """Placements `pl` on `mesh` with "model" replicated: the compute
+    view's, since the model runs replicated over "model"."""
+    return [p if name != "model" else Replicate()
+            for name, p in zip(mesh.mesh_dim_names, pl)]
+
+
+def _compute_view(t, mctx: MeshCtx):
+    """This rank's tensor of a placed input: its local shard along the
+    batch axes, whole along "model" (gathered where it is sharded
+    there)."""
+    if not isinstance(t, DTensor):
+        return t
+    pl = _model_replicated(t.placements, mctx.device_mesh)
+    if tuple(pl) != tuple(t.placements):
+        t = t.redistribute(mctx.device_mesh, pl)
+    return t.to_local()
+
+
+def _placed_output(t: torch.Tensor, s, mctx: MeshCtx):
+    """A rank's compute view `t` (its batch shard, whole along "model") as
+    the DTensor at spec `s` (fitted to the global shape)."""
+    mesh = mctx.device_mesh
+    pl = placements(s, mesh)
+    return DTensor.from_local(t, mesh, _model_replicated(pl, mesh)
+                              ).redistribute(mesh, pl)
+
+
+def _mesh_sum(loss, grads, like, mctx: MeshCtx):
+    """The mesh's loss and gradients from each rank's: every rank's part
+    scaled by 1/ranks (each rank's loss is its batch shard's mean, and
+    the ranks along "model" compute the same one), the loss all-reduced
+    and each gradient reduced into the placement of its moment in `like`
+    (a reduce-scatter where the moments shard it)."""
+    mesh = mctx.device_mesh
+    if mesh is None:
+        return loss, grads
+    n = mesh.size()
+    if n > 1:
+        loss = loss / n
+        tree_map(lambda g: g.mul_(1.0 / n), grads)
+    dist.all_reduce(loss)
+    partial = [Partial()] * mesh.ndim
+    return loss, tree_map(
+        lambda g, m: DTensor.from_local(g, mesh, partial).redistribute(
+            mesh, m.placements), grads, like)
 
 
 def value_and_grad(api: ModelAPI, params, batch, mctx: MeshCtx):
@@ -80,14 +157,15 @@ def make_train_step(api: ModelAPI, tcfg: TrainConfig, mctx: MeshCtx):
     nmb = tcfg.num_microbatches
 
     def train_step(params, opt_state: AdamState, batch):
+        compute = _compute_params(params, mctx)
         if nmb > 1:
             mbs = _microbatch(batch, nmb, mctx)
             adt = getattr(torch, tcfg.accum_dtype)
             grads = tree_map(lambda p: torch.zeros(p.shape, dtype=adt,
-                                               device=p.device), params)
+                                               device=p.device), compute)
             loss_sum = None
             for i in range(nmb):
-                loss, g = value_and_grad(api, params,
+                loss, g = value_and_grad(api, compute,
                                          {k: v[i] for k, v in mbs.items()},
                                          mctx)
                 tree_map(lambda a, b: a.add_(b.to(adt)), grads, g)
@@ -95,11 +173,15 @@ def make_train_step(api: ModelAPI, tcfg: TrainConfig, mctx: MeshCtx):
             loss = loss_sum / nmb
             tree_map(lambda g: g.div_(nmb), grads)
         else:
-            loss, grads = value_and_grad(api, params, batch, mctx)
+            loss, grads = value_and_grad(
+                api, compute, {k: _compute_view(v, mctx)
+                               for k, v in batch.items()}, mctx)
+        loss, grads = _mesh_sum(loss, grads, opt_state.m, mctx)
 
         if tcfg.grad_compression == "int8":
-            # quantize-dequantize before the optimizer, as the reference
-            # does; its int8 all-reduce waits for the multi-device slice
+            # quantize-dequantize of the reduced gradient before the
+            # optimizer, as the reference does (its int8 all-reduce is
+            # only modelled there): a quantized wire would change the sums
             grads = tree_map(lambda g: g.float(),
                          decompress_int8(compress_int8(grads)))
 
@@ -194,6 +276,8 @@ class StaticStep:
             return
         if static is LIKE or _is_specs(static):
             def make(v, spec=None):
+                if isinstance(v, DTensor):      # placed on a mesh
+                    return torch.empty_like(v)
                 shape = tuple(v.shape) if spec is None else spec.shape
                 return torch.empty(shape, dtype=torch.as_tensor(v).dtype,
                                    device=self.device)
@@ -235,7 +319,7 @@ class StaticStep:
             out = self.body(*self.buffers.values())
         main.wait_stream(side)
         for t in _tensors(out):
-            t.record_stream(main)
+            local(t).record_stream(main)
         graph = torch.cuda.CUDAGraph()
         # no graph may be freed during the capture: garbage is collected
         # first and the collector waits until the capture ends (on an H100,
@@ -269,6 +353,25 @@ def _undonated(step: StaticStep, donated: tuple):
     return call
 
 
+def _placing(step, placers):
+    """`step` called with each argument placed on the mesh first by its
+    placer (the reference's in_shardings); `.step` is the StaticStep."""
+    def call(*args):
+        return step(*(put(a) for put, a in zip(placers, args)))
+    call.step = getattr(step, "step", step)
+    return call
+
+
+def _placer(mctx: MeshCtx, specs):
+    """A function placing a tree shaped like `specs` (fitted specs) at
+    those specs' placements, worked out once."""
+    mesh = mctx.device_mesh
+    pls = tree_map(lambda s: None if s is None
+                   else tuple(placements(s, mesh)), specs)
+    return lambda tree: tree_map(
+        lambda t, pl: None if t is None else place(t, mesh, pl), tree, pls)
+
+
 def jit_train_step(api: ModelAPI, tcfg: TrainConfig, mctx: MeshCtx,
                    shape: ShapeConfig, donate: bool = True):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
@@ -276,8 +379,10 @@ def jit_train_step(api: ModelAPI, tcfg: TrainConfig, mctx: MeshCtx,
     With `donate`, the first call's params and AdamState become the
     step's and every call updates them in place (the reference's
     donate_argnums=(0, 1)); without, the step keeps copies and returns
-    copies. The returned object is the StaticStep (or, without `donate`,
-    a function whose `.step` is)."""
+    copies. The returned object is the StaticStep (or, without `donate`
+    or on a mesh, a function whose `.step` is). On a mesh the params,
+    moments and batch are placed by `param_pspecs`, `zero1_pspecs` (with
+    cfg.zero1, else the param specs) and `input_pspecs`."""
     train_step = make_train_step(api, tcfg, mctx)
 
     def body(params, opt_state, batch):
@@ -289,17 +394,62 @@ def jit_train_step(api: ModelAPI, tcfg: TrainConfig, mctx: MeshCtx,
     step = StaticStep(body, mctx.device, {
         "params": held, "opt_state": held,
         "batch": api.input_specs(shape)})
-    return step if donate else _undonated(step, (0, 1))
+    step = step if donate else _undonated(step, (0, 1))
+    mesh = mctx.device_mesh
+    if mesh is None:
+        return step
+    defs = api.param_defs()
+    p_specs = param_pspecs(defs, mesh, mctx.rules)
+    z_put = _placer(mctx, zero1_pspecs(defs, mesh, mctx.rules)
+                    if api.cfg.zero1 else p_specs)
+    return _placing(step, (
+        _placer(mctx, p_specs),
+        lambda o: AdamState(o.step, z_put(o.m), z_put(o.v)),
+        _placer(mctx, shardings_for(mesh, api.input_specs(shape),
+                                    api.input_pspecs(mctx, shape)))))
+
+
+def _mesh_io(api: ModelAPI, mctx: MeshCtx, shape: ShapeConfig):
+    """On a mesh: the placer of the params, the fitted specs of the
+    inputs of `shape`, of the logits and of the cache."""
+    mesh = mctx.device_mesh
+    B = shape.global_batch
+    return (_placer(mctx, param_pspecs(api.param_defs(), mesh, mctx.rules)),
+            shardings_for(mesh, api.input_specs(shape),
+                          api.input_pspecs(mctx, shape)),
+            fit_spec((B, api.cfg.vocab), mctx.batch_spec(None), mesh),
+            shardings_for(mesh, api.cache_specs(B, shape.seq_len),
+                          api.cache_pspecs(mctx)))
 
 
 def jit_prefill_step(api: ModelAPI, mctx: MeshCtx, shape: ShapeConfig):
     """Returns prefill_step(params, inputs) -> (logits, cache), compiled on
-    the input buffers of `api.input_specs(shape)`."""
-    def body(params, inputs):
-        return api.prefill(params, inputs, mctx)
-    return StaticStep(body, mctx.device, {
+    the input buffers of `api.input_specs(shape)`. On a mesh the params
+    and inputs are placed as `jit_train_step` places them, and the logits
+    and cache come back as DTensors, the cache placed by
+    `cache_pspecs`."""
+    mesh = mctx.device_mesh
+    if mesh is None:
+        def body(params, inputs):
+            return api.prefill(params, inputs, mctx)
+    else:
+        put_params, in_specs, logits_spec, cache_spec = _mesh_io(
+            api, mctx, shape)
+
+        def body(params, inputs):
+            logits, cache = api.prefill(
+                _compute_params(params, mctx),
+                {k: _compute_view(v, mctx) for k, v in inputs.items()}, mctx)
+            return (_placed_output(logits, logits_spec, mctx),
+                    tree_map(lambda c, s: None if c is None
+                             else _placed_output(c, s, mctx),
+                             cache, cache_spec))
+    step = StaticStep(body, mctx.device, {
         "params": BIND,
         "inputs": api.input_specs(shape)})
+    if mesh is None:
+        return step
+    return _placing(step, (put_params, _placer(mctx, in_specs)))
 
 
 def jit_decode_step(api: ModelAPI, mctx: MeshCtx, shape: ShapeConfig,
@@ -308,16 +458,43 @@ def jit_decode_step(api: ModelAPI, mctx: MeshCtx, shape: ShapeConfig,
     compiled on the token, position and cache buffers of
     `api.input_specs(shape)`. The cache buffer is updated in place and
     returned (the reference's donate_argnums=(3,)): a call given it makes
-    no copy. Without `donate` the step returns a copy of it."""
+    no copy. Without `donate` the step returns a copy of it. On a mesh
+    the cache is placed by `cache_pspecs`; each step gathers it whole
+    along "model", where it is sharded there, and writes its shard
+    back."""
     specs = api.input_specs(shape)
+    mesh = mctx.device_mesh
+    if mesh is None:
+        def body(params, token, pos, cache):
+            logits, new = api.decode(params, {"token": token, "pos": pos},
+                                     cache, mctx)
+            map_tree(lambda c, n: None if n is c else c.copy_(n), cache, new)
+            return logits, cache
+    else:
+        put_params, in_specs, logits_spec, cache_spec = _mesh_io(
+            api, mctx, shape)
 
-    def body(params, token, pos, cache):
-        logits, new = api.decode(params, {"token": token, "pos": pos}, cache,
-                                 mctx)
-        map_tree(lambda c, n: None if n is c else c.copy_(n), cache, new)
-        return logits, cache
+        def body(params, token, pos, cache):
+            view = tree_map(lambda c: None if c is None
+                            else _compute_view(c, mctx), cache)
+            logits, new = api.decode(
+                _compute_params(params, mctx),
+                {"token": _compute_view(token, mctx),
+                 "pos": _compute_view(pos, mctx)}, view, mctx)
+
+            def write(c, v, n, s):
+                if n is v and v.data_ptr() == local(c).data_ptr():
+                    return              # updated in place, c's own storage
+                local(c).copy_(local(_placed_output(n, s, mctx)))
+            tree_map(lambda c, v, n, s: None if c is None
+                     else write(c, v, n, s), cache, view, new, cache_spec)
+            return _placed_output(logits, logits_spec, mctx), cache
 
     step = StaticStep(body, mctx.device, {
         "params": BIND, "token": specs["token"], "pos": specs["pos"],
         "cache": specs["cache"]})
-    return step if donate else _undonated(step, (1,))
+    step = step if donate else _undonated(step, (1,))
+    if mesh is None:
+        return step
+    return _placing(step, (put_params, *(_placer(mctx, in_specs[k])
+                                          for k in ("token", "pos", "cache"))))

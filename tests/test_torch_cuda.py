@@ -8,7 +8,9 @@ path's stream cipher and Fletcher checksum (bit-exact with their plain
 versions, the inline crypto and the engine checksum), and the moe, vlm
 and encdec families: the flash forward at head_dim 128 in the GQA groups
 of dbrx and llama-3.2-vision, `moe_ffn` with drops and the float8
-dispatch cast on the card against the CPU port.
+dispatch cast on the card against the CPU port; and the multi-device
+layer on a one-rank NCCL group: the mesh's train step and `moe_ffn` bit
+for bit their one-device counterparts.
 Every test here needs a card and skips
 without one; on the card run them with
 
@@ -1087,3 +1089,85 @@ def test_jit_train_step_replay_equals_eager(cuda_device):
             s_e.v)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert int(s_c.step) == 3 and step.calls == 3 and step.copies == 6
+
+
+# -- the multi-device layer on a one-rank NCCL group ----------------------------
+@pytest.fixture
+def nccl_mesh(cuda_device):
+    """A one-rank NCCL group (from a HashStore: no port) and its (data 1,
+    model 1) DeviceMesh; the group is destroyed after the test."""
+    import torch.distributed as dist
+    from repro_torch.models.context import make_mesh
+    assert dist.is_nccl_available()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device(
+                                "cuda", torch.cuda.current_device()))
+    try:
+        yield make_mesh((1, 1), ("data", "model"), "cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_mesh_train_step_equals_the_one_device_step(nccl_mesh):
+    """Three steps of jit_train_step on the one-rank mesh (params and
+    moments DTensors, zero1, the flash kernels, 2 microbatches), captured
+    and replayed, against the one-device compiled step from the same
+    state, bit for bit."""
+    from repro_torch.common.config import ShapeConfig, TrainConfig
+    from repro_torch.models.context import mesh_ctx
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train.optimizer import init_adam, local
+    from repro_torch.train.trainer import jit_train_step, map_tree
+    api, params, one = _tiny_on_card("granite-3-2b", dict(
+        head_dim=64, attn_impl="flash"), torch.device("cuda"))
+    assert api.cfg.zero1
+    tcfg = TrainConfig(lr=1e-2, total_steps=10, warmup_steps=2,
+                       num_microbatches=2)
+    shape = ShapeConfig("t", 64, 4, "train")
+    steps = [jit_train_step(api, tcfg, ctx, shape)
+             for ctx in (one, mesh_ctx(api.cfg, nccl_mesh))]
+    states = [(p, init_adam(p)) for p in (params, map_tree(torch.clone,
+                                                           params))]
+    gen = np.random.default_rng(5)
+    for _ in range(3):
+        toks = gen.integers(0, api.cfg.vocab, (4, 65), dtype=np.int32)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        out = [step(p, s, batch) for step, (p, s) in zip(steps, states)]
+        states = [(p, s) for p, s, _ in out]
+        for key in ("loss", "grad_norm", "lr"):
+            torch.testing.assert_close(out[1][2][key], out[0][2][key],
+                                       rtol=0, atol=0)
+    assert steps[1].step.graph is not None
+    (p1, s1), (p2, s2) = states
+    assert all(hasattr(t, "device_mesh") for t in tree_leaves(p2))
+    for a, b in zip(tree_leaves(p2) + tree_leaves(s2.m) + tree_leaves(s2.v),
+                    tree_leaves(p1) + tree_leaves(s1.m) + tree_leaves(s1.v)):
+        torch.testing.assert_close(local(a), b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("wire", ["bfloat16", "float8_e4m3fn"])
+def test_mesh_moe_ffn_equals_the_meshless_call(nccl_mesh, wire):
+    """moe_ffn on the one-rank mesh (its exchanges through NCCL's
+    all_to_all_single and all-gather), eagerly and as a captured graph's
+    replay, bit for bit the meshless call."""
+    import dataclasses
+    from repro_torch.models.context import mesh_ctx
+    from repro_torch.models.moe import moe_ffn
+    from repro_torch.models.params import tree_map
+    from repro_torch.train.trainer import BIND, StaticStep
+    api, params, one = _tiny_on_card("dbrx-132b", {}, torch.device("cuda"))
+    cfg = api.cfg.replace(moe=dataclasses.replace(api.cfg.moe,
+                                                  dispatch_dtype=wire))
+    mesh = mesh_ctx(cfg, nccl_mesh)
+    layer = tree_map(lambda t: t[0], params["blocks"]["mlp"])
+    x = torch.randn(4, 32, cfg.d_model, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(1)
+                    ).bfloat16()
+    want = moe_ffn(x, layer, cfg, one)
+    torch.testing.assert_close(moe_ffn(x, layer, cfg, mesh), want, rtol=0,
+                               atol=0)
+    step = StaticStep(lambda p, h: moe_ffn(h, p, cfg, mesh), mesh.device,
+                      {"p": BIND, "x": BIND})
+    step(layer, x)
+    torch.testing.assert_close(step(layer, x), want, rtol=0, atol=0)
+    assert step.graph is not None
