@@ -196,7 +196,30 @@ result):
                replay, each bit for bit the meshless call, the collectives'
                copies counted in the traces (a one-rank NCCL collective is
                a device-to-device copy, not a kernel). GPipe needs two
-               stages: the phase says so and has no check of it.
+               stages: the phase says so and has no check of it. Then
+               13(b) below;
+ 13. dryrun    the dry-run (launch/dryrun.py) and the roofline
+               (roofline/analytic.py) against the steps they model:
+               (a) dense-100m's train step (8 x 256, 2 microbatches) and
+               granite-3-2b's prefill wave (4 x 1024) and decode step
+               (batch 4), each traced by the dry-run (FakeTensorMode, fake
+               CUDA tensors, the kernels through their ops' fake
+               implementations) and run once eagerly on the card under the
+               same counters (roofline/collectives.py): the FLOPs and the
+               collectives of each kind must be equal; the dry-run's peak
+               bytes printed beside torch.cuda.max_memory_allocated() over
+               the real step; (b) in the mesh phase, the one-rank NCCL
+               mesh's train step recorded on the card against its dry-run
+               on a one-rank fake mesh (a process of its own): collectives
+               of each kind and FLOPs equal; (c) granite-3-2b x decode_32k
+               and x prefill_32k on the 16 x 16 mesh of 256 fake ranks in a
+               process of its own, started first, with their trace
+               seconds; (d) every serve configuration's prefill wave and
+               decode step and the compiled train step: mfu =
+               model_flops_per_step(cfg as run, shape as run) / (measured
+               s x the bf16 peak), the analytic roofline at MeshPlan(1, 1),
+               measured over it and its dominant term, with the card's name
+               and power limit.
 
 Each kernel's launch counts are zeroed just before the path that drives it
 (rs_matmul: the ec phase; stream_cipher and fletcher: the step on the
@@ -227,8 +250,6 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 MiB = 1 << 20
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3, NVIDIA data sheet
-BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor-core peak
 DOMAINS = ["a", "a", "b", "b", "c", "c", "d", "d"]
 TRACE_ATTEMPTS = 5              # timing windows traced before giving up
 
@@ -483,6 +504,7 @@ def tensor_core_phase() -> dict:
 # -- phase 2: the kernel against its plain version ----------------------------
 def kernel_phase(seed: int) -> dict:
     import torch
+    from repro_torch.launch.mesh import HBM_BW
     from repro_torch.kernels.rs_parity import kernel as K
     from repro_torch.kernels.rs_parity import ref
 
@@ -564,7 +586,7 @@ def kernel_phase(seed: int) -> dict:
                               K.KERNEL_NAME)
         call_ms = cuda_ms(lambda: K.rs_matmul(mat, x), 200)
         plain_ms = cuda_ms(lambda: ref.gf_matmul_torch(mat, x), 10)
-        bound_ms = (s + m) * L / HBM_BYTES_PER_S * 1e3
+        bound_ms = (s + m) * L / HBM_BW * 1e3
         legs[leg] = {"m": m, "s": s, "L": L, "ms": ms, "call_ms": call_ms,
                      "plain_ms": plain_ms, "bound_ms": bound_ms}
         print(f"rs_matmul {leg} (m={m}, s={s}, L={L}): kernel {ms:.6f} ms "
@@ -758,13 +780,15 @@ FLASH_FLOOR_T = 16              # one CTA of each flash kernel
 
 def flash_bound(B: int, T: int, H: int, KH: int, D: int, elem: int) -> dict:
     """The least time an H100 SXM could take for causal attention at this
-    shape: the larger of the products' operations over the bf16 tensor-core
-    peak and the bytes (q, k, v, out, lse, each once) over HBM's rate."""
-    pairs = B * H * T * (T + 1) // 2                 # unmasked (q, k) pairs
-    flops = 4 * D * pairs                            # q.k and p.v, 2 each
+    shape: the larger of the products' operations (`attention_flops`, the
+    kernel's FLOP formula) over the bf16 tensor-core peak and the bytes
+    (q, k, v, out, lse, each once) over HBM's rate."""
+    from repro_torch.kernels.flash_attention.ops import attention_flops
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16
+    flops = attention_flops(B, T, T, H, D)           # 4 D an unmasked pair
     nbytes = (2 * B * T * H * D + 2 * B * T * KH * D) * elem + 4 * B * H * T
-    ops_ms = flops / BF16_FLOPS * 1e3
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_FLOPS_BF16 * 1e3
+    bytes_ms = nbytes / HBM_BW * 1e3
     return {"flops": flops, "bytes": nbytes, "ops_ms": ops_ms,
             "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
@@ -839,6 +863,7 @@ def _flash_times(shape: tuple, gen) -> dict:
     the port), beside the bound."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16
     from repro_torch.kernels.flash_attention import kernel as K
     from repro_torch.kernels.flash_attention import ops, ref
 
@@ -864,9 +889,9 @@ def _flash_times(shape: tuple, gen) -> dict:
           f"{call_ms:.6f} ms a call, plain {plain_ms:.6f} ms, "
           f"scaled_dot_product_attention {library_ms:.6f} ms; bound "
           f"{bound['bound_ms']:.6f} ms by {bound['bound_by']}: "
-          f"{bound['flops']} FLOP / {BF16_FLOPS:.3g} FLOP/s = "
+          f"{bound['flops']} FLOP / {PEAK_FLOPS_BF16:.3g} FLOP/s = "
           f"{bound['ops_ms']:.6f} ms, {bound['bytes']} B / "
-          f"{HBM_BYTES_PER_S:.3g} B/s = {bound['bytes_ms']:.6f} ms")
+          f"{HBM_BW:.3g} B/s = {bound['bytes_ms']:.6f} ms")
     return {"shape": dict(zip(("B", "T", "H", "KH", "D"), shape)), "ms": ms,
             "call_ms": call_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, **bound}
@@ -901,14 +926,16 @@ def flash_bwd_bound(B: int, T: int, H: int, KH: int, D: int,
                     elem: int) -> dict:
     """The least time an H100 SXM could take for the causal backward at
     this shape: the larger of the five products' operations (10 D FLOP
-    per unmasked (q, k) pair) over the bf16 tensor-core peak and the bytes
+    per unmasked (q, k) pair, `attention_flops`, the kernel's FLOP
+    formula) over the bf16 tensor-core peak and the bytes
     (q, k, v, out, dout, dq, dk, dv in the input type and lse, delta in
     float32, each once) over HBM's rate."""
-    pairs = B * H * T * (T + 1) // 2
-    flops = 10 * D * pairs
+    from repro_torch.kernels.flash_attention.ops import attention_flops
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16
+    flops = attention_flops(B, T, T, H, D, backward=True)
     nbytes = (4 * B * T * H * D + 4 * B * T * KH * D) * elem + 8 * B * H * T
-    ops_ms = flops / BF16_FLOPS * 1e3
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_FLOPS_BF16 * 1e3
+    bytes_ms = nbytes / HBM_BW * 1e3
     return {"flops": flops, "bytes": nbytes, "ops_ms": ops_ms,
             "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
@@ -917,6 +944,7 @@ def flash_bwd_bound(B: int, T: int, H: int, KH: int, D: int,
 def flash_bwd_phase(seed: int) -> dict:
     import torch
     import torch.nn.functional as F
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention import kernel_bwd as KB
     from repro_torch.kernels.flash_attention import ops, ref
@@ -1010,8 +1038,8 @@ def flash_bwd_phase(seed: int) -> dict:
               f"{plain_ms:.6f} ms, scaled_dot_product_attention backward "
               f"{library_ms:.6f} ms; bound {bound['bound_ms']:.6f} ms by "
               f"{bound['bound_by']}: {bound['flops']} FLOP / "
-              f"{BF16_FLOPS:.3g} FLOP/s = {bound['ops_ms']:.6f} ms, "
-              f"{bound['bytes']} B / {HBM_BYTES_PER_S:.3g} B/s = "
+              f"{PEAK_FLOPS_BF16:.3g} FLOP/s = {bound['ops_ms']:.6f} ms, "
+              f"{bound['bytes']} B / {HBM_BW:.3g} B/s = "
               f"{bound['bytes_ms']:.6f} ms")
         del q, k, v, dout, out, lse, delta, qt, kt, vt, lib_out, lib, mine
     # the launch floor: one CTA of each of the two kernels
@@ -1059,10 +1087,12 @@ def rglru_bound(B: int, T: int, R: int, h0: bool) -> dict:
     """The least time an H100 SXM could take for the scan: a and b read
     and h written once, and h0 read once where one is given (bytes); and
     one FMA an element over the float32 FMA peak."""
+    from repro_torch.kernels.rglru_scan.ops import rglru_flops
+    from repro_torch.launch.mesh import HBM_BW
     nbytes = (3 * B * T * R + (B * R if h0 else 0)) * 4
-    flops = 2 * B * T * R
+    flops = rglru_flops(B, T, R)
     ops_ms = flops / FP32_FLOPS * 1e3
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BW * 1e3
     return {"flops": flops, "bytes": nbytes, "ops_ms": ops_ms,
             "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms > bytes_ms else "bytes"}
@@ -1072,23 +1102,16 @@ def wkv_bound(B: int, T: int, H: int, hd: int, s0: bool,
               chunk: int = 32) -> dict:
     """The least time an H100 SXM could take for the chunked WKV: r, k,
     v, w read and y written once, the state written once, s0 read once
-    where one is given, u read (bytes); and the operations of the four stages over the rows
-    this T holds, exp and log counted as one operation and an FMA as two,
-    over the float32 FMA peak. Per chunk of n rows: 8·n·hd to take logs,
-    sum them and decay r and k; 2·n·hd² for (r·exp(cum_prev)) @ S;
-    5·hd a strictly causal (t, s) pair; 3·n·hd for the bonus; 2·hd a
-    (t, s <= t) pair for att @ v; 2·n·hd² + hd² + hd for the state."""
+    where one is given, u read (bytes); and the operations of the four
+    stages over the rows this T holds over the float32 FMA peak
+    (`wkv6_flops`, the kernel's FLOP formula)."""
+    from repro_torch.kernels.rwkv6_scan.ops import wkv6_flops
+    from repro_torch.launch.mesh import HBM_BW
     nbytes = (5 * B * T * H * hd + (2 if s0 else 1) * B * H * hd * hd
               + H * hd) * 4
-    flops = 0
-    for c0 in range(0, T, chunk):
-        n = min(chunk, T - c0)
-        flops += (8 * n * hd + 2 * n * hd * hd + 5 * hd * n * (n - 1) // 2
-                  + 3 * n * hd + 2 * hd * n * (n + 1) // 2
-                  + 2 * n * hd * hd + hd * hd + hd)
-    flops *= B * H
+    flops = wkv6_flops(B, T, H, hd, chunk)
     ops_ms = flops / FP32_FLOPS * 1e3
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BW * 1e3
     return {"flops": flops, "bytes": nbytes, "ops_ms": ops_ms,
             "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms > bytes_ms else "bytes"}
@@ -1096,6 +1119,7 @@ def wkv_bound(B: int, T: int, H: int, hd: int, s0: bool,
 
 def scan_phase(seed: int) -> dict:
     import torch
+    from repro_torch.launch.mesh import HBM_BW
     from repro_torch.kernels.rglru_scan import kernel as RGK
     from repro_torch.kernels.rglru_scan import ops as rops
     from repro_torch.kernels.rglru_scan import ref as rref
@@ -1228,7 +1252,7 @@ def scan_phase(seed: int) -> dict:
               f"{ms:.6f} ms on the device, {call_ms:.6f} ms a call, plain "
               f"{plain_ms:.6f} ms; bound {bound['bound_ms']:.6f} ms by "
               f"{bound['bound_by']}: {bound['bytes']} B / "
-              f"{HBM_BYTES_PER_S:.3g} B/s, {bound['flops']} FLOP / "
+              f"{HBM_BW:.3g} B/s, {bound['flops']} FLOP / "
               f"{FP32_FLOPS:.3g} FLOP/s = {bound['ops_ms']:.6f} ms")
     # the launch floor: one CTA of one warp and one step, with h0
     a, b, h0 = scan_inputs(*RGLRU_FLOOR)
@@ -1274,7 +1298,7 @@ def scan_phase(seed: int) -> dict:
           f"({ms / bound['bound_ms']:.2f}x the bound), "
           f"{call_ms:.6f} ms a call, plain "
           f"{plain_ms:.6f} ms; bound {bound['bound_ms']:.6f} ms by "
-          f"{bound['bound_by']}: {bound['bytes']} B / {HBM_BYTES_PER_S:.3g} "
+          f"{bound['bound_by']}: {bound['bytes']} B / {HBM_BW:.3g} "
           f"B/s = {bound['bytes_ms']:.6f} ms, {bound['flops']} FLOP / "
           f"{FP32_FLOPS:.3g} FLOP/s = {bound['ops_ms']:.6f} ms")
     return {"rglru": {"max_abs_err": max(worst.values()),
@@ -1299,13 +1323,14 @@ def integrity_bound(kernel: str, n_bytes: int) -> dict:
     """The least time an H100 SXM could take: the cipher reads and writes
     every byte, the checksum reads every byte and writes 8 (bytes); the
     integer operations a word over the INT32 rate (operations)."""
+    from repro_torch.launch.mesh import HBM_BW
     words = (n_bytes + 3) // 4
     if kernel == "stream_cipher":
         nbytes, ops = 2 * n_bytes, CIPHER_OPS_A_WORD * words
     else:
         nbytes, ops = n_bytes + 8, FLETCHER_OPS_A_WORD * words
     ops_ms = ops / INT32_OPS * 1e3
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BW * 1e3
     return {"bytes": nbytes, "int_ops": ops, "ops_ms": ops_ms,
             "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms > bytes_ms else "bytes"}
@@ -1338,6 +1363,7 @@ def integrity_phase(seed: int, size: int) -> dict:
     and nonce >= 2^32 and a buffer of `size` bytes (the involution there
     too); then both timed at a 1 MiB block and at `size`."""
     import torch
+    from repro_torch.launch.mesh import HBM_BW
     from repro_torch.kernels.fletcher import kernel as FLK
     from repro_torch.kernels.fletcher import ops as flops
     from repro_torch.kernels.fletcher import ref as flref
@@ -1433,7 +1459,7 @@ def integrity_phase(seed: int, size: int) -> dict:
                   f"{ms:.6f} ms on the device ({by_op}), {call_ms:.6f} ms a "
                   f"call, plain {plain_ms:.6f} ms; bound "
                   f"{bound['bound_ms']:.6f} ms by {bound['bound_by']}: "
-                  f"{bound['bytes']} B / {HBM_BYTES_PER_S:.3g} B/s, "
+                  f"{bound['bytes']} B / {HBM_BW:.3g} B/s, "
                   f"{bound['int_ops']} integer ops / {INT32_OPS:.3g} op/s = "
                   f"{bound['ops_ms']:.6f} ms")
         check(legs["1MiB"]["ops_per_call"] == 1,
@@ -3242,6 +3268,90 @@ def mesh_moe_check(seed: int, mctx) -> dict:
     return out
 
 
+MESH_DRYRUN = f"""
+import json
+from repro_torch.common.config import ShapeConfig
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun
+from repro_torch.models.params import MeshShape
+cfg = get_config("dense-100m").replace(attn_impl="flash")
+print(json.dumps(dryrun.trace_cell(
+    cfg, ShapeConfig("train", {TRAIN_SEQ}, {TRAIN_BATCH}, "train"),
+    MeshShape(("data", "model"), (1, 1)), {TRAIN_MICROBATCHES})))
+"""
+
+
+def _dryrun_process(code: str, *args: str):
+    """`code` started in a Python process of its own from the checkout's
+    src (a dry-run's fake process group is global); its last line of
+    output is read by `_dryrun_result`."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen([sys.executable, "-W", "ignore", "-c", code,
+                             *args], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env,
+                            cwd=ROOT)
+
+
+def _dryrun_result(proc, timeout: float = 600):
+    out, err = proc.communicate(timeout=timeout)
+    check(proc.returncode == 0, f"dry-run process failed: {err[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def _held(label: str, fake: dict, real: dict) -> dict:
+    """A dry-run's record against the same step's counts on the card: the
+    FLOPs and the collectives of each kind must be equal."""
+    check(fake["flops_per_device"] == real["flops_per_device"],
+          f"{label}: dry-run FLOPs {fake['flops_per_device']} != "
+          f"{real['flops_per_device']} on the card")
+    check(fake["collective_counts"] == real["collective_counts"],
+          f"{label}: dry-run collectives {fake['collective_counts']} != "
+          f"{real['collective_counts']} on the card")
+    return {"flops": real["flops_per_device"],
+            "flops_by_op_equal": fake["flops_by_op"] == real["flops_by_op"],
+            "collective_counts": real["collective_counts"],
+            "collective_bytes": real["collective_bytes_per_device"],
+            "dryrun_bytes": fake["bytes_per_device"],
+            "card_bytes": real["bytes_per_device"],
+            "dryrun_memory": fake["memory"], "trace_s": fake["trace_s"]}
+
+
+def mesh_dryrun_check(seed: int, mctx, fake_mesh) -> dict:
+    """13(b): the mesh train step of (a) (dense-100m, zero1, the one-rank
+    NCCL mesh), its body run once eagerly on the card under the dry-run's
+    counters, against the dry-run of the same step on a one-rank fake
+    mesh: FLOPs and the collectives of each kind equal."""
+    import torch
+    from repro_torch.common.config import ShapeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models.api import ModelAPI
+    from repro_torch.models.context import mesh_ctx
+    from repro_torch.models.params import init_params
+    from repro_torch.train.optimizer import init_adam
+
+    cfg = get_config("dense-100m").replace(attn_impl="flash")
+    api = ModelAPI(cfg)
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    step = dryrun.make_step(api, mesh_ctx(cfg, mctx.device_mesh), shape,
+                            TRAIN_MICROBATCHES)
+    params = init_params(api.param_defs(),
+                         torch.Generator(device="cuda").manual_seed(seed))
+    toks = np.random.default_rng(seed).integers(
+        0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ + 1), dtype=np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    real = dryrun.record_step(step, (params, init_adam(params), batch))
+    torch.cuda.synchronize()
+    held = _held("mesh train step", _dryrun_result(fake_mesh), real)
+    print(f"[dryrun] (b) the mesh train step on the one-rank NCCL mesh vs "
+          f"its dry-run on a one-rank fake mesh: {held['flops']:.6e} FLOP "
+          f"and collectives {held['collective_counts']} in both (by op "
+          f"{'equal' if held['flops_by_op_equal'] else 'not equal'}); "
+          f"traced in {held['trace_s']} s")
+    return held
+
+
 def mesh_phase(seed: int, times: dict) -> dict:
     """The multi-device layer driven on the card through a one-rank NCCL
     group: (a) the DTensor/ZeRO-1 train step, (b) expert parallelism's
@@ -3250,6 +3360,9 @@ def mesh_phase(seed: int, times: dict) -> dict:
     import torch
     import torch.distributed as dist
     torch.cuda.empty_cache()
+    # 13(b)'s dry-run, on a one-rank fake mesh, in a process of its own
+    # (the process group is global), beside the mesh phase
+    fake_mesh = _dryrun_process(MESH_DRYRUN)
     t0 = time.perf_counter()
     mctx = _nccl_mesh()
     try:
@@ -3258,12 +3371,189 @@ def mesh_phase(seed: int, times: dict) -> dict:
         t0 = time.perf_counter()
         moe = mesh_moe_check(seed, mctx)
         times["mesh_moe_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        train["dryrun"] = mesh_dryrun_check(seed, mctx, fake_mesh)
+        times["mesh_dryrun_s"] = time.perf_counter() - t0
     finally:
+        fake_mesh.kill()
         dist.destroy_process_group()
     print("[mesh] GPipe (distributed/pipeline.py) needs two stages, so one "
           "card has no check of it: tests/test_torch_multidevice.py holds it "
           "against the sequential forward on gloo ranks")
     return {"train": train, "moe": moe}
+
+
+# -- phase 13: the dry-run and the roofline -----------------------------------
+PROD_ARCH = "granite-3-2b"                    # 13(c): on 16 x 16 fake ranks
+PROD_SHAPES = ("decode_32k", "prefill_32k")
+PROD_DRYRUN = """
+import json, sys, time
+from repro_torch.launch import dryrun
+t0 = time.perf_counter()
+recs = {s: dryrun.run_cell(sys.argv[1], s) for s in sys.argv[2:]}
+print(json.dumps({"records": recs, "wall_s": time.perf_counter() - t0}))
+"""
+
+
+def _step_vs_dryrun(label: str, api, shape, args, nmb: int = 1) -> dict:
+    """13(a): `api`'s step at `shape` traced by the dry-run, then run once
+    eagerly on the card on `args` under the same counters: FLOPs and the
+    collectives of each kind equal; the dry-run's peak bytes beside
+    torch.cuda.max_memory_allocated() over the real step."""
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.models.context import single_device_ctx
+    fake = dryrun.trace_cell(api.cfg, shape, nmb=nmb)
+    step = dryrun.make_step(api, single_device_ctx(api.cfg), shape, nmb)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    real = dryrun.record_step(step, args)
+    torch.cuda.synchronize()
+    held = _held(label, fake, real)
+    peak = torch.cuda.max_memory_allocated()
+    dry = fake["memory"]["peak_memory_in_bytes"]
+    held.update({"dryrun_peak_bytes": dry, "max_memory_allocated": peak,
+                 "allocated_before": before, "peak_ratio": dry / peak})
+    print(f"[dryrun] (a) {label}: {held['flops']:.6e} FLOP in both (by op "
+          f"{'equal' if held['flops_by_op_equal'] else 'not equal'}), "
+          f"collectives {held['collective_counts'] or 'none'}; peak: dry-run "
+          f"{dry / 1e9:.3f} GB, max_memory_allocated {peak / 1e9:.3f} GB "
+          f"({before / 1e9:.3f} GB allocated before the step), ratio "
+          f"{dry / peak:.4f}; traced in {fake['trace_s']} s")
+    return held
+
+
+def dryrun_card_checks(seed: int) -> dict:
+    """13(a) for dense-100m's train step (the train phase's shape) and
+    granite-3-2b's prefill wave and decode step (the serve phase's), at
+    full width."""
+    import torch
+    from repro_torch.common.config import ShapeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import ModelAPI
+    from repro_torch.models.params import init_params
+    from repro_torch.train.optimizer import init_adam
+
+    out = {}
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    api = ModelAPI(get_config("dense-100m").replace(attn_impl="flash"))
+    params = init_params(api.param_defs(), gen)
+    toks = torch.from_numpy(rng.integers(
+        0, api.cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ + 1), dtype=np.int32)).cuda()
+    out["dense-100m train"] = _step_vs_dryrun(
+        "dense-100m train step", api,
+        ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train"),
+        (params, init_adam(params), {"tokens": toks[:, :-1].contiguous(),
+                                     "labels": toks[:, 1:].contiguous()}),
+        TRAIN_MICROBATCHES)
+    del params
+    torch.cuda.empty_cache()
+    api = ModelAPI(get_config(PROD_ARCH).replace(attn_impl="flash"))
+    params = init_params(api.param_defs(), gen)
+    cfg = api.cfg
+    max_seq = SERVE_PLEN + SERVE_MAX_NEW + 8
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (SERVE_BATCH, SERVE_PLEN), dtype=np.int32)).cuda()
+    out[f"{PROD_ARCH} prefill"] = _step_vs_dryrun(
+        f"{PROD_ARCH} prefill wave", api,
+        ShapeConfig("prefill", SERVE_PLEN, SERVE_BATCH, "prefill"),
+        (params, {"tokens": toks}))
+    cache = {k: torch.zeros(c.shape, dtype=c.dtype, device="cuda")
+             for k, c in api.cache_specs(SERVE_BATCH, max_seq).items()}
+    pos = torch.full((SERVE_BATCH,), SERVE_PLEN, dtype=torch.int32,
+                     device="cuda")
+    out[f"{PROD_ARCH} decode"] = _step_vs_dryrun(
+        f"{PROD_ARCH} decode step", api,
+        ShapeConfig("decode", max_seq, SERVE_BATCH, "decode"),
+        (params, toks[:, -1].contiguous(), pos, cache))
+    return out
+
+
+def roofline_shares(card: str, serve: dict, train: dict) -> dict:
+    """13(d): each path's model-FLOP share and roofline share from the
+    times the earlier phases measured (compiled steps): mfu =
+    model_flops_per_step(cfg as run, shape as run) / (measured s x the
+    bf16 peak), and the analytic roofline at MeshPlan(1, 1), measured s
+    over its bound and the dominant term."""
+    from repro_torch.common.config import ShapeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16
+    from repro_torch.roofline.analytic import (MeshPlan, model_flops_per_step,
+                                               terms_for)
+
+    def as_run(arch: str):
+        full = get_config(arch)
+        if arch in MOE_SERVE:
+            return full.replace(n_layers=MOE_SERVE[arch])
+        if arch == VLM:
+            return full.replace(n_layers=VLM_SUPER_BLOCKS
+                                * full.vlm.cross_every)
+        return full
+
+    rows = {}
+
+    def row(name: str, cfg, shape, seconds: float, nmb: int = 1) -> None:
+        t = terms_for(cfg, shape, MeshPlan(dp=1, tp=1), nmb)
+        sec = t.seconds()
+        bound = max(sec["compute_s"], sec["memory_s"], sec["collective_s"])
+        mfu = model_flops_per_step(cfg, shape) / (seconds * PEAK_FLOPS_BF16)
+        rows[name] = {"measured_s": seconds, "mfu": mfu, "roofline_s": bound,
+                      "measured_over_roofline": seconds / bound,
+                      "dominant": sec["dominant"], "layers": cfg.n_layers,
+                      "seq_len": shape.seq_len, "batch": shape.global_batch}
+        print(f"[roofline] {name} ({cfg.n_layers} layers; {card}): mfu "
+              f"{mfu:.6f}, roofline {bound:.6e} s ({sec['dominant']}), "
+              f"measured {seconds:.6e} s = {seconds / bound:.4f}x the "
+              f"roofline")
+
+    for arch, stats in serve.items():
+        cfg = as_run(arch)
+        plen = WHISPER_PLEN if arch == WHISPER else SERVE_PLEN
+        max_seq = plen + SERVE_MAX_NEW + 8
+        row(f"{arch} prefill wave", cfg,
+            ShapeConfig("prefill", plen, SERVE_BATCH, "prefill"),
+            stats["prefill_s_per_wave"])
+        row(f"{arch} decode step", cfg,
+            ShapeConfig("decode", max_seq, SERVE_BATCH, "decode"),
+            stats["decode_ms_per_step"] / 1e3)
+    row("dense-100m train step", get_config("dense-100m"),
+        ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train"),
+        train["step_s_median_replays"], TRAIN_MICROBATCHES)
+    return rows
+
+
+def dryrun_phase(seed: int, card: str, serve: dict, train: dict,
+                 times: dict) -> dict:
+    """Phase 13: (c) started first, in a process of its own; (a) the
+    dry-run against the steps it models, on the card; (d) the roofline
+    shares of every serve and train path; then (c)'s records."""
+    t0 = time.perf_counter()
+    prod = _dryrun_process(PROD_DRYRUN, PROD_ARCH, *PROD_SHAPES)
+    try:
+        steps = dryrun_card_checks(seed)
+        times["dryrun_card_s"] = time.perf_counter() - t0
+        shares = roofline_shares(card, serve, train)
+        out = _dryrun_result(prod)
+    finally:
+        prod.kill()
+    cells = {}
+    for shape, rec in out["records"].items():
+        check(rec["ok"] and rec["n_devices"] == 256,
+              f"{PROD_ARCH} x {shape}: {rec}")
+        cells[shape] = {k: rec[k] for k in (
+            "trace_s", "flops_per_device", "collective_bytes_per_device",
+            "collective_counts", "memory", "trace_device")}
+        print(f"[dryrun] (c) {PROD_ARCH} x {shape} on the 16 x 16 mesh of 256 "
+              f"fake ranks ({rec['trace_device']}): traced in "
+              f"{rec['trace_s']} s, {rec['flops_per_device']:.4e} FLOP, "
+              f"{rec['collective_bytes_per_device']:.4e} collective B, peak "
+              f"{rec['memory']['peak_memory_in_bytes'] / 1e9:.3f} GB a rank")
+    times["dryrun_phase_s"] = time.perf_counter() - t0
+    return {"steps": steps, "production": cells,
+            "production_wall_s": out["wall_s"], "roofline": shares,
+            "card": card}
 
 
 def main(argv=None) -> int:
@@ -3398,6 +3688,10 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         mesh = mesh_phase(args.seed, times)
         times["mesh_phase_s"] = time.perf_counter() - t0
+
+        dry = dryrun_phase(args.seed, card, {
+            "granite-3-2b": serve, **rec_serve, **moe_serve,
+            VLM: vlm_serve, WHISPER: whisper_serve}, train, times)
         torch.cuda.synchronize()
     except Exception:
         traceback.print_exc()
@@ -3415,6 +3709,7 @@ def main(argv=None) -> int:
         print(f"serve {arch}:", json.dumps(stats))
     print("train:", json.dumps(train))
     print("mesh:", json.dumps(mesh))
+    print("dryrun:", json.dumps(dry))
     # flash_attention_fwd's serve paths, each counted from 0 just before it
     flash_paths = {"granite-3-2b": serve["flash_launches"],
                    "dbrx-132b": moe_serve["dbrx-132b"]["flash_launches"],

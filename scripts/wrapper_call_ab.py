@@ -14,7 +14,11 @@ builds its kernels into its own build/kernels): the mean time a call over
 chip_smoke.py's `cuda_ms`), at each kernel's one-CTA floor shape, where a
 call takes as long as its host part, and for rglru_scan also at the
 decode shape of recurrentgemma-2b, which the serve path calls 18 times a
-step. Prints one JSON line a process.
+step. The four model kernels are also timed through the public functions
+of their `ops.py` ("(ops)" below), which the models call: since the
+dry-run slice these dispatch through each kernel's `torch.library`
+custom op, so the pair of trees shows what the dispatcher adds to an
+eager call. Prints one JSON line a process.
 """
 from __future__ import annotations
 
@@ -35,10 +39,13 @@ def calls_of(src: str) -> int:
     import chip_smoke as cs
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention import kernel_bwd as FKB
+    from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.rglru_scan import kernel as RK
+    from repro_torch.kernels.rglru_scan import ops as rops
     from repro_torch.kernels.rs_parity import kernel as K
     from repro_torch.kernels.rs_parity import ref
     from repro_torch.kernels.rwkv6_scan import kernel as WK
+    from repro_torch.kernels.rwkv6_scan import ops as wops
 
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -67,6 +74,15 @@ def calls_of(src: str) -> int:
         "rglru_scan (1, 1, 32)": lambda: RK.rglru_scan(a, b, h0),
         "rglru_scan (4, 1, 2560)": lambda: RK.rglru_scan(da, db, dh0),
         "wkv6 (1, 1, 1, 16)": lambda: WK.wkv6(*w),
+        "flash_attention (ops) (1, 16, 1, 1, 64)":
+            lambda: fops.flash_attention(q, k, v, scale=0.125),
+        "flash_attention_backward (ops) (1, 16, 1, 1, 64)":
+            lambda: fops.flash_attention_backward(q, k, v, out, lse, dout,
+                                                  scale=0.125),
+        "rglru_scan (ops) (1, 1, 32)": lambda: rops.rglru_scan(a, b, h0),
+        "rglru_scan (ops) (4, 1, 2560)": lambda: rops.rglru_scan(da, db,
+                                                                 dh0),
+        "wkv6 (ops) (1, 1, 1, 16)": lambda: wops.wkv6(*w),
     }
     res = {name: cs.cuda_ms(fn, CALLS) for name, fn in wrappers.items()}
     print(json.dumps({"call_ms": res, "card": cs.card_line(),

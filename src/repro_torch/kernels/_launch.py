@@ -12,12 +12,18 @@ not on the current one, and the stream is read as the raw pointer
 PyTorch's own generated code reads (`torch._C._cuda_getCurrentRawStream`),
 without making a `torch.cuda.Stream`. Under capture that is the capturing
 stream, so a wrapper's launch lands in the graph.
+
+A trace (FakeTensorMode, the dry-run's) reaches a kernel only through its
+op's fake implementation (`kernels/*/ops.py`); a fake tensor handed to a
+wrapper itself is refused (`refuse_fake`), since its `data_ptr()` reads 0
+and the kernel would launch on null pointers.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 BYTE_DTYPES = (torch.uint8, torch.uint32)
 
@@ -46,3 +52,13 @@ def launching() -> bool:
     False while the stream is being captured into a CUDA graph, where the
     call records its kernel and each replay of the graph launches it."""
     return not torch.cuda.is_current_stream_capturing()
+
+
+def refuse_fake(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raises if a tensor is fake: a kernel is traced through its op's
+    fake implementation, never launched on a fake tensor's pointers."""
+    for t in tensors:
+        if isinstance(t, FakeTensor):
+            raise RuntimeError(f"{name} handed a FakeTensor: a trace reaches "
+                               "the kernel through its op's fake "
+                               "implementation, not its launch")

@@ -13,9 +13,10 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import call_on
+from repro_torch.kernels._launch import call_on, refuse_fake
 
 HEAD_DIMS = (64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -45,30 +46,25 @@ def build() -> None:
 def readable(x: torch.Tensor, what: str,
              kernel: str = "flash_attention_fwd") -> None:
     """The flash kernels read rows of 16 bytes in place: the last dimension
-    must be contiguous and every row start 16-byte aligned."""
+    must be contiguous and every row start 16-byte aligned (of a fake
+    tensor the strides are checked; it has no address)."""
     per16 = 16 // x.element_size()
-    if (x.stride(-1) != 1 or x.data_ptr() % 16
+    if (x.stride(-1) != 1
+            or (not isinstance(x, FakeTensor) and x.data_ptr() % 16)
             or any(s % per16 for s in x.stride()[:-1])):
         raise ValueError(f"{kernel} reads {what} in place: its "
                          "last dimension must be contiguous and its rows "
                          f"16-byte aligned, got strides {x.stride()}")
 
 
-def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, scale: float, causal: bool = True,
-                        window: Optional[int] = None,
-                        softcap: Optional[float] = None,
-                        seq_k: Optional[int] = None
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """q (B,T,H,D), k and v (B,S,KH,D) CUDA tensors of one dtype (float32
-    or bfloat16), D in HEAD_DIMS, H % KH == 0. Keys at positions >= seq_k
-    (default S) are masked. Returns (out (B,T,H,D), lse (B,H,T) float32).
-    Raises on what the kernel does not take and if the launch fails."""
+def check_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              window: Optional[int] = None, softcap: Optional[float] = None,
+              seq_k: Optional[int] = None) -> int:
+    """Raises on what the kernel does not take but the device, which the
+    launch checks (its op's fake implementation checks a trace's tensors
+    here); returns seq_k (default S)."""
     B, T, H, D = q.shape
     S, KH = k.shape[1], k.shape[2]
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
-        raise ValueError("flash_attention_fwd takes CUDA tensors on one "
-                         f"device, got {q.device}, {k.device}, {v.device}")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("flash_attention_fwd takes float32 or bfloat16 q, "
                          f"k, v of one dtype, got {q.dtype}, {k.dtype}, "
@@ -88,6 +84,26 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"seq_k {seq_k} outside 0..{S}")
     for x, what in ((q, "q"), (k, "k"), (v, "v")):
         readable(x, what)
+    return seq_k
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, scale: float, causal: bool = True,
+                        window: Optional[int] = None,
+                        softcap: Optional[float] = None,
+                        seq_k: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q (B,T,H,D), k and v (B,S,KH,D) CUDA tensors of one dtype (float32
+    or bfloat16), D in HEAD_DIMS, H % KH == 0. Keys at positions >= seq_k
+    (default S) are masked. Returns (out (B,T,H,D), lse (B,H,T) float32).
+    Raises on what the kernel does not take and if the launch fails."""
+    refuse_fake("flash_attention_fwd", q, k, v)
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError("flash_attention_fwd takes CUDA tensors on one "
+                         f"device, got {q.device}, {k.device}, {v.device}")
+    seq_k = check_fwd(q, k, v, window, softcap, seq_k)
+    B, T, H, D = q.shape
+    S, KH = k.shape[1], k.shape[2]
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3],

@@ -17,7 +17,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import call_on
+from repro_torch.kernels._launch import call_on, refuse_fake
 from repro_torch.kernels.flash_attention.kernel import (DTYPES, HEAD_DIMS,
                                                         readable)
 
@@ -45,24 +45,14 @@ def build() -> None:
     _lib()
 
 
-def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        dout: torch.Tensor, lse: torch.Tensor,
-                        delta: torch.Tensor, *, scale: float,
-                        causal: bool = True, window: Optional[int] = None,
-                        seq_k: Optional[int] = None
-                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """q and dout (B,T,H,D), k and v (B,S,KH,D) CUDA tensors of one dtype
-    (float32 or bfloat16), D in HEAD_DIMS, H % KH == 0; lse and delta =
-    rowsum(dout * out) (B,H,T) contiguous float32. Keys at positions >=
-    seq_k (default S) are masked. Returns (dq (B,T,H,D), dk, dv (B,S,KH,D))
-    in q's dtype. Raises on what the kernels do not take and if a launch
-    fails."""
+def check_bwd(q, k, v, dout, lse, delta, window: Optional[int] = None,
+              seq_k: Optional[int] = None) -> int:
+    """Raises on what the kernels do not take but the device, which the
+    launch checks (its op's fake implementation checks a trace's tensors
+    here); returns seq_k (default S)."""
     B, T, H, D = q.shape
     S, KH = k.shape[1], k.shape[2]
     name = "flash_attention_bwd"
-    if any(x.device.type != "cuda" or x.device != q.device
-           for x in (q, k, v, dout, lse, delta)):
-        raise ValueError(f"{name} takes CUDA tensors on one device")
     if q.dtype not in DTYPES or any(x.dtype != q.dtype for x in (k, v, dout)):
         raise ValueError(f"{name} takes float32 or bfloat16 q, k, v, dout of "
                          f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}, "
@@ -88,6 +78,29 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"seq_k {seq_k} outside 0..{S}")
     for x, what in ((q, "q"), (k, "k"), (v, "v"), (dout, "dout")):
         readable(x, what, name)
+    return seq_k
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        dout: torch.Tensor, lse: torch.Tensor,
+                        delta: torch.Tensor, *, scale: float,
+                        causal: bool = True, window: Optional[int] = None,
+                        seq_k: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q and dout (B,T,H,D), k and v (B,S,KH,D) CUDA tensors of one dtype
+    (float32 or bfloat16), D in HEAD_DIMS, H % KH == 0; lse and delta =
+    rowsum(dout * out) (B,H,T) contiguous float32. Keys at positions >=
+    seq_k (default S) are masked. Returns (dq (B,T,H,D), dk, dv (B,S,KH,D))
+    in q's dtype. Raises on what the kernels do not take and if a launch
+    fails."""
+    refuse_fake("flash_attention_bwd", q, k, v, dout, lse, delta)
+    if any(x.device.type != "cuda" or x.device != q.device
+           for x in (q, k, v, dout, lse, delta)):
+        raise ValueError("flash_attention_bwd takes CUDA tensors on one "
+                         "device")
+    seq_k = check_bwd(q, k, v, dout, lse, delta, window, seq_k)
+    B, T, H, D = q.shape
+    S, KH = k.shape[1], k.shape[2]
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)

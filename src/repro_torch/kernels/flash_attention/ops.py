@@ -25,15 +25,27 @@ LAUNCHES["bwd_softcap"]. LAUNCHES["fwd"] and LAUNCHES["bwd"] count kernel
 launches (one per call; the backward call launches its two kernels). A
 call captured into a CUDA graph launches nothing and is not counted: each
 replay of the graph launches the kernels it recorded.
+
+The card's kernels are reached through two ops, `repro_torch::
+flash_attention_fwd` and `repro_torch::flash_attention_bwd`
+(`torch.library.custom_op`), which launch and count. Each has a fake
+implementation, which runs the kernel's argument checks and makes its
+outputs' shapes and dtypes, through which a trace under FakeTensorMode
+(the dry-run's) passes without loading or launching anything, and a FLOP
+formula registered with
+`torch.utils.flop_counter` (`attention_flops`, which `chip_smoke.py`'s
+bounds call too).
 """
 from __future__ import annotations
 
 import math
 import threading
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels._launch import launching
 from repro_torch.kernels.flash_attention import kernel as K
@@ -63,12 +75,92 @@ def launches() -> Dict[str, int]:
         return dict(LAUNCHES)
 
 
+def attention_pairs(T: int, S: int, causal: bool = True,
+                    window: Optional[int] = None,
+                    seq_k: Optional[int] = None) -> int:
+    """The (query, key) pairs attention computes for queries 0..T-1 over
+    keys 0..S-1: keys below seq_k (default S), at or before the query
+    where causal, after query - window where a window is set (the plain
+    version's mask, `ref._mask`)."""
+    lim = S if seq_k is None else min(S, seq_k)
+    t = np.arange(T, dtype=np.int64)
+    hi = np.minimum(t + 1, lim) if causal else np.full(T, lim)
+    lo = np.maximum(t - window + 1, 0) if window is not None else 0
+    return int(np.clip(hi - lo, 0, None).sum())
+
+
+def attention_flops(B: int, T: int, S: int, H: int, D: int, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    seq_k: Optional[int] = None,
+                    backward: bool = False) -> int:
+    """The flash kernels' FLOPs on q (B,T,H,D) against S keys: 4·D a
+    computed (query, key) pair forward (q·k and p·v, two each), 10·D
+    backward (its five products)."""
+    return ((10 if backward else 4) * D * B * H
+            * attention_pairs(T, S, causal, window, seq_k))
+
+
 def _pad_to(x: torch.Tensor, axis: int, mult: int) -> torch.Tensor:
     pad = (-x.shape[axis]) % mult
     if pad == 0:
         return x
     widths = [0, 0] * (x.dim() - 1 - axis) + [0, pad]
     return F.pad(x, widths)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=())
+def _fwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                scale: float, causal: bool, window: Optional[int],
+                softcap: Optional[float]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel's launch, counted."""
+    out, lse = K.flash_attention_fwd(q, k, v, scale=scale, causal=causal,
+                                     window=window, softcap=softcap)
+    if launching():
+        _count("fwd")
+    return out, lse
+
+
+@_fwd_kernel.register_fake
+def _(q, k, v, scale, causal, window, softcap):
+    K.check_fwd(q, k, v, window, softcap)
+    B, T, H, _ = q.shape
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty((B, H, T), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _(q, k, v, scale, causal, window, softcap, *args, **kwargs) -> int:
+    B, T, H, D = q
+    return attention_flops(B, T, k[1], H, D, causal=causal, window=window)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
+def _bwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                dout: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                scale: float, causal: bool, window: Optional[int]
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernels' launch, counted."""
+    grads = KB.flash_attention_bwd(q, k, v, dout, lse, delta, scale=scale,
+                                   causal=causal, window=window)
+    if launching():
+        _count("bwd")
+    return grads
+
+
+@_bwd_kernel.register_fake
+def _(q, k, v, dout, lse, delta, scale, causal, window):
+    KB.check_bwd(q, k, v, dout, lse, delta, window)
+    return tuple(torch.empty_like(x, memory_format=torch.contiguous_format)
+                 for x in (q, k, v))
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _(q, k, v, dout, lse, delta, scale, causal, window, *args,
+      **kwargs) -> int:
+    B, T, H, D = q
+    return attention_flops(B, T, k[1], H, D, causal=causal, window=window,
+                           backward=True)
 
 
 def _forward(q, k, v, scale, causal, window, softcap, block_q, block_k):
@@ -82,11 +174,8 @@ def _forward(q, k, v, scale, causal, window, softcap, block_q, block_k):
             scale=scale, causal=causal, window=window, softcap=softcap,
             seq_k=S, return_lse=True)
         return out[:, :T], lse[:, :, :T]
-    out, lse = K.flash_attention_fwd(q, k, v, scale=scale, causal=causal,
-                                     window=window, softcap=softcap)
-    if launching():
-        _count("fwd")
-    return out, lse
+    return torch.ops.repro_torch.flash_attention_fwd(
+        q, k, v, scale, causal, window, softcap)
 
 
 def flash_attention_backward(q, k, v, out, lse, dout, *, scale: float,
@@ -105,11 +194,9 @@ def flash_attention_backward(q, k, v, out, lse, dout, *, scale: float,
         # delta in float32 outside the kernel, as the reference computes it
         # (repro/kernels/flash_attention/kernel_bwd.py:140-141)
         delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
-        dq, dk, dv = KB.flash_attention_bwd(
+        dq, dk, dv = torch.ops.repro_torch.flash_attention_bwd(
             q, k, v, dout.contiguous(), lse.contiguous(),
-            delta.contiguous(), scale=scale, causal=causal, window=window)
-        if launching():
-            _count("bwd")
+            delta.contiguous(), scale, causal, window)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 

@@ -18,7 +18,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import call_on
+from repro_torch.kernels._launch import call_on, refuse_fake
 
 SOURCE = "src/repro_torch/csrc/rglru_scan.cu"
 REPLACES = "src/repro/kernels/rglru_scan/kernel.py:51"
@@ -51,20 +51,33 @@ def _check(x: torch.Tensor, shape: tuple, what: str, dev) -> None:
                          f"{tuple(x.shape)} on {x.device}")
 
 
+def check(a: torch.Tensor, b: torch.Tensor,
+          h0: Optional[torch.Tensor] = None) -> None:
+    """Raises on what the kernel does not take but a device other than the
+    card, which the launch checks (its op's fake implementation checks a
+    trace's tensors here)."""
+    if a.dim() != 3:
+        raise ValueError(f"rglru_scan takes (B,T,R) tensors, got "
+                         f"{tuple(a.shape)}")
+    B, T, R = a.shape
+    _check(a, (B, T, R), "a", a.device)
+    _check(b, (B, T, R), "b", a.device)
+    if h0 is not None:
+        _check(h0, (B, R), "h0", a.device)
+
+
 def rglru_scan(a: torch.Tensor, b: torch.Tensor,
                h0: Optional[torch.Tensor] = None, *,
                reverse: bool = False) -> torch.Tensor:
     """a, b (B,T,R) and h0 (B,R) or None: contiguous float32 CUDA tensors.
     Returns h (B,T,R) float32. Raises on what the kernel does not take and
     if the launch fails."""
+    refuse_fake("rglru_scan", a, b, h0)
     if a.device.type != "cuda" or a.dim() != 3:
         raise ValueError("rglru_scan takes (B,T,R) CUDA tensors, got "
                          f"{tuple(a.shape)} on {a.device}")
+    check(a, b, h0)
     B, T, R = a.shape
-    _check(a, (B, T, R), "a", a.device)
-    _check(b, (B, T, R), "b", a.device)
-    if h0 is not None:
-        _check(h0, (B, R), "h0", a.device)
     h = torch.empty_like(a)
     if h.numel() == 0:
         return h

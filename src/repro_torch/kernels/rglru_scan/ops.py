@@ -20,7 +20,12 @@ kernel walks t from T-1 down, fed a shifted one step left), as the
 reference runs its forward kernel on the time-reversed sequence
 (`ops.py:149-162`). LAUNCHES["fwd"] and LAUNCHES["bwd"] count kernel
 launches; a call captured into a CUDA graph launches nothing and is not
-counted.
+counted. The kernel is reached through the op `repro_torch::rglru_scan`
+(`torch.library.custom_op`), which launches and counts; its fake
+implementation runs the kernel's argument checks and makes the output's
+shape and dtype, for a trace under FakeTensorMode, and `rglru_flops` is
+its FLOP formula for `torch.utils.flop_counter` (and `chip_smoke.py`'s
+bound).
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ import threading
 from typing import Dict, Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels._launch import launching
 from repro_torch.kernels.rglru_scan import kernel as K
@@ -48,21 +54,46 @@ def launches() -> Dict[str, int]:
         return dict(LAUNCHES)
 
 
-def _scan(a, b, h0, reverse: bool, leg: str) -> torch.Tensor:
-    if a.device.type == "cpu":
-        return ref.rglru_scan_ref(a, b, h0, reverse=reverse)
-    h = K.rglru_scan(a.contiguous(), b.contiguous(),
-                     None if h0 is None else h0.contiguous(), reverse=reverse)
+def rglru_flops(B: int, T: int, R: int) -> int:
+    """The scan's FLOPs: one multiply-add an element."""
+    return 2 * B * T * R
+
+
+@torch.library.custom_op("repro_torch::rglru_scan", mutates_args=())
+def _kernel(a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor],
+            reverse: bool) -> torch.Tensor:
+    """The kernel's launch, counted under "bwd" when reversed (the
+    backward's adjoint scan), else "fwd"."""
+    h = K.rglru_scan(a, b, h0, reverse=reverse)
     if launching():
         with _launch_lock:
-            LAUNCHES[leg] += 1
+            LAUNCHES["bwd" if reverse else "fwd"] += 1
     return h
+
+
+@_kernel.register_fake
+def _(a, b, h0, reverse):
+    K.check(a, b, h0)
+    return torch.empty_like(a)
+
+
+@register_flop_formula(torch.ops.repro_torch.rglru_scan)
+def _(a, b, h0, reverse, *args, **kwargs) -> int:
+    return rglru_flops(*a)
+
+
+def _scan(a, b, h0, reverse: bool) -> torch.Tensor:
+    if a.device.type == "cpu":
+        return ref.rglru_scan_ref(a, b, h0, reverse=reverse)
+    return torch.ops.repro_torch.rglru_scan(
+        a.contiguous(), b.contiguous(),
+        None if h0 is None else h0.contiguous(), reverse)
 
 
 class _RGLRUScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, b, h0):
-        h = _scan(a, b, h0, False, "fwd")
+        h = _scan(a, b, h0, False)
         ctx.save_for_backward(a, h, h0)
         return h
 
@@ -70,7 +101,7 @@ class _RGLRUScan(torch.autograd.Function):
     def backward(ctx, dout):
         a, h, h0 = ctx.saved_tensors
         a_next = torch.cat([a[:, 1:], torch.ones_like(a[:, :1])], dim=1)
-        g = _scan(a_next, dout.float(), None, True, "bwd")
+        g = _scan(a_next, dout.float(), None, True)
         first = torch.zeros_like(h[:, :1]) if h0 is None else h0[:, None]
         h_prev = torch.cat([first, h[:, :-1]], dim=1)
         dh0 = None if h0 is None else a[:, 0] * g[:, 0]
@@ -86,4 +117,4 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
     if torch.is_grad_enabled() and any(
             x is not None and x.requires_grad for x in (a, b, h0)):
         return _RGLRUScan.apply(a, b, h0)
-    return _scan(a, b, h0, False, "fwd")
+    return _scan(a, b, h0, False)

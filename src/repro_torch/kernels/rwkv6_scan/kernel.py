@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import call_on
+from repro_torch.kernels._launch import call_on, refuse_fake
 
 HEAD_DIMS = (16, 32, 64, 128)
 CHUNK = 32                               # WKV_CHUNK of the source
@@ -61,17 +61,13 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-         w: torch.Tensor, u: torch.Tensor,
-         s0: Optional[torch.Tensor] = None
-         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """r, k, v, w (B,T,H,hd), u (H,hd), s0 (B,H,hd,hd) or None (zeros):
-    contiguous float32 CUDA tensors, hd in HEAD_DIMS. Returns (y, final
-    state). Raises on what the kernels do not take and if a launch
-    fails."""
-    if r.device.type != "cuda" or r.dim() != 4:
-        raise ValueError("wkv6 takes (B,T,H,hd) CUDA tensors, got "
-                         f"{tuple(r.shape)} on {r.device}")
+def check(r, k, v, w, u, s0=None) -> None:
+    """Raises on what the kernels do not take but a device other than the
+    card, which the launch checks (its op's fake implementation checks a
+    trace's tensors here)."""
+    if r.dim() != 4:
+        raise ValueError(f"wkv6 takes (B,T,H,hd) tensors, got "
+                         f"{tuple(r.shape)}")
     B, T, H, hd = r.shape
     if hd not in HEAD_DIMS or B < 1 or T < 1 or H < 1:
         raise ValueError(f"wkv6 takes head_dim in {HEAD_DIMS} and B, T, H "
@@ -81,6 +77,23 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(u, (H, hd), "u", r.device)
     if s0 is not None:
         _check(s0, (B, H, hd, hd), "s0", r.device)
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         w: torch.Tensor, u: torch.Tensor,
+         s0: Optional[torch.Tensor] = None
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """r, k, v, w (B,T,H,hd), u (H,hd), s0 (B,H,hd,hd) or None (zeros):
+    contiguous float32 CUDA tensors, hd in HEAD_DIMS. Returns (y, final
+    state). Raises on what the kernels do not take and if a launch
+    fails."""
+    refuse_fake("wkv6", r, k, v, w, u, s0)
+    if r.device.type != "cuda" or r.dim() != 4:
+        raise ValueError("wkv6 takes (B,T,H,hd) CUDA tensors, got "
+                         f"{tuple(r.shape)} on {r.device}")
+    check(r, k, v, w, u, s0)
+    B, T, H, hd = r.shape
+    if s0 is not None:
         s0 = _aligned(s0)
     r, k, v, w = (_aligned(x) for x in (r, k, v, w))
     y = torch.empty_like(r)

@@ -13,14 +13,25 @@ It is differentiable like the reference's custom_vjp (`ops.py:167-188`):
 the backward is autograd through the plain sequential version
 `ref.wkv_ref`, on either device. LAUNCHES["fwd"] counts kernel calls
 (two kernels each); a call captured into a CUDA graph launches nothing and
-is not counted.
+is not counted. The kernels are reached through the op
+`repro_torch::wkv6` (`torch.library.custom_op`), which launches and
+counts; its fake implementation runs the kernels' argument checks and
+makes the outputs' shapes and dtypes, for a trace under FakeTensorMode,
+and `wkv6_flops` is its FLOP formula for `torch.utils.flop_counter` (and
+`chip_smoke.py`'s bound). The backward is one op too,
+`repro_torch::wkv6_backward`, whose fake implementation makes the
+gradients' shapes: a trace steps over the recurrence's T steps instead of
+recording each (the transient state of those steps is then not in the
+trace's memory record), and `wkv6_backward_flops` counts what the FLOP
+counter counts of autograd through `ref.wkv_ref`.
 """
 from __future__ import annotations
 
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels._launch import launching
 from repro_torch.kernels.rwkv6_scan import kernel as K
@@ -43,15 +54,84 @@ def launches() -> Dict[str, int]:
         return dict(LAUNCHES)
 
 
-def _forward(r, k, v, w, u, s0, chunk: int):
-    if r.device.type == "cpu":
-        return ref.wkv_plain(r, k, v, w, u, s0, chunk)
-    y, s = K.wkv6(*(x.contiguous() for x in (r, k, v, w, u)),
-                  None if s0 is None else s0.contiguous())
+def wkv6_flops(B: int, T: int, H: int, hd: int, chunk: int = K.CHUNK) -> int:
+    """The chunked WKV's operations over the rows this T holds, exp and
+    log counted as one and a multiply-add as two. Per chunk of n rows:
+    8·n·hd to take logs, sum them and decay r and k; 2·n·hd² for
+    (r·exp(cum_prev)) @ S; 5·hd a strictly causal (t, s) pair; 3·n·hd for
+    the bonus; 2·hd a (t, s <= t) pair for att @ v; 2·n·hd² + hd² + hd for
+    the state."""
+    flops = 0
+    for c0 in range(0, T, chunk):
+        n = min(chunk, T - c0)
+        flops += (8 * n * hd + 2 * n * hd * hd + 5 * hd * n * (n - 1) // 2
+                  + 3 * n * hd + 2 * hd * n * (n + 1) // 2
+                  + 2 * n * hd * hd + hd * hd + hd)
+    return flops * B * H
+
+
+@torch.library.custom_op("repro_torch::wkv6", mutates_args=())
+def _kernel(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            w: torch.Tensor, u: torch.Tensor, s0: Optional[torch.Tensor]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernels' launch, counted."""
+    y, s = K.wkv6(r, k, v, w, u, s0)
     if launching():
         with _launch_lock:
             LAUNCHES["fwd"] += 1
     return y, s
+
+
+@_kernel.register_fake
+def _(r, k, v, w, u, s0):
+    K.check(r, k, v, w, u, s0)
+    B, T, H, hd = r.shape
+    return torch.empty_like(r), r.new_empty((B, H, hd, hd))
+
+
+@register_flop_formula(torch.ops.repro_torch.wkv6)
+def _(r, k, v, w, u, s0, *args, **kwargs) -> int:
+    return wkv6_flops(*r)
+
+
+def _forward(r, k, v, w, u, s0, chunk: int):
+    if r.device.type == "cpu":
+        return ref.wkv_plain(r, k, v, w, u, s0, chunk)
+    return torch.ops.repro_torch.wkv6(
+        *(x.contiguous() for x in (r, k, v, w, u)),
+        None if s0 is None else s0.contiguous())
+
+
+def wkv6_backward_flops(B: int, T: int, H: int, hd: int) -> int:
+    """The products of autograd through the sequential recurrence: each
+    step's r_t @ (u k_t v_t + S) again (2·hd² a head) and its two
+    transposes."""
+    return 6 * B * T * H * hd * hd
+
+
+@torch.library.custom_op("repro_torch::wkv6_backward", mutates_args=())
+def _backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, u: torch.Tensor, s0: Optional[torch.Tensor],
+              dy: torch.Tensor, ds: torch.Tensor) -> List[torch.Tensor]:
+    """The gradients of r, k, v, w, u (and s0, where given): autograd
+    through the sequential recurrence `ref.wkv_ref`, as the reference's
+    custom_vjp is `jax.vjp` of its oracle."""
+    # an op's implementation runs below autograd: torch.func's vjp
+    # differentiates there
+    ins = [x for x in (r, k, v, w, u, s0) if x is not None]
+    _, pullback = torch.func.vjp(ref.wkv_ref, *ins)
+    return list(pullback((dy, ds)))
+
+
+@_backward.register_fake
+def _(r, k, v, w, u, s0, dy, ds):
+    return [torch.empty_like(x) for x in (r, k, v, w, u, s0)
+            if x is not None]
+
+
+@register_flop_formula(torch.ops.repro_torch.wkv6_backward)
+def _(r, *args, **kwargs) -> int:
+    return wkv6_backward_flops(*r)
 
 
 class _WKV6(torch.autograd.Function):
@@ -63,10 +143,10 @@ class _WKV6(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, ds):
-        with torch.enable_grad():
-            ins = [x.detach().requires_grad_() for x in ctx.saved_tensors]
-            y, s = ref.wkv_ref(*ins)
-            grads = torch.autograd.grad((y, s), ins, (dy, ds))
+        saved = ctx.saved_tensors
+        grads = torch.ops.repro_torch.wkv6_backward(
+            *saved[:5], saved[5] if ctx.has_s0 else None,
+            dy.contiguous(), ds.contiguous())
         return (*grads, *(() if ctx.has_s0 else (None,)), None)
 
 

@@ -4,9 +4,11 @@
 Functions, not module-level constants: importing this module touches no
 process group. The production meshes are (16, 16) over ("data",
 "model") and (2, 16, 16) over ("pod", "data", "model"); their shapes
-(`production_mesh_shape`) are all the spec functions need. The roofline's
-hardware constants are the H100's, and come with the roofline slice
-(ROADMAP Queue 1); the reference's TPU v5e figures are not carried over.
+(`production_mesh_shape`) are all the spec functions need. The
+hardware constants below are one NVIDIA H100 SXM's, the counterparts of
+the reference's TPU v5e figures (`repro/launch/mesh.py:35-38`), which are
+not carried over; the roofline (`roofline/analytic.py`) and
+`chip_smoke.py`'s bounds read them from here.
 """
 from __future__ import annotations
 
@@ -48,3 +50,13 @@ def make_host_mesh_ctx(cfg, data: Optional[int] = None,
     mesh = make_mesh((data or 1, model or 1), ("data", "model"),
                      resolve_device(device).type)
     return mesh_ctx(cfg, mesh)
+
+
+# NVIDIA H100 SXM hardware constants used by the roofline (per card).
+PEAK_FLOPS_BF16 = 989e12    # FLOP/s, dense bf16 (H100 SXM data sheet)
+HBM_BW = 3.35e12            # B/s, HBM3 (H100 SXM data sheet)
+# B/s each way: NVLink 4, 900 GB/s bidirectional to the host's other cards
+# (H100 SXM data sheet), the counterpart of a TPU's per-link ICI rate. A
+# 16-way "model" axis spans two 8-card NVLink domains, where InfiniBand
+# would bound it; the roofline keeps this one rate.
+NVLINK_BW = 450e9

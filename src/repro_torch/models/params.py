@@ -25,7 +25,8 @@ import torch
 from torch.distributed.tensor import (DTensor, Replicate, Shard,
                                       distribute_tensor)
 
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import (DeviceLike, resolve_device, trace_device,
+                                tracing)
 
 Axes = Tuple[Optional[str], ...]
 Spec = Tuple[Union[None, str, Tuple[str, ...]], ...]
@@ -108,6 +109,41 @@ def init_params(defs: Dict[str, Any], generator: torch.Generator,
             node = node.setdefault(key, {})
         node[path[-1]] = _init_leaf(d, generator, dtype, device)
     return out
+
+
+def abstract(shape: Sequence[int], dtype: torch.dtype,
+             device: DeviceLike = None, mesh=None,
+             s: Optional[Spec] = None) -> torch.Tensor:
+    """A tensor of `shape` and `dtype` that allocates nothing: a fake one,
+    made under the active FakeTensorMode on `device` (`trace_device()` by
+    default). On a DeviceMesh it is the DTensor at spec `s` over this
+    rank's fake local shard, built by `DTensor.from_local` with no check:
+    no collective is recorded, as the reference's compiled step receives
+    its arguments already sharded."""
+    device = trace_device() if device is None else torch.device(device)
+    if not tracing():
+        raise RuntimeError("abstract tensors are made under FakeTensorMode")
+    if mesh is None:
+        return torch.empty(tuple(shape), dtype=dtype, device=device)
+    pl = placements(fit_spec(shape, s, mesh), mesh)
+    local = list(shape)
+    for size, p in zip(mesh.shape, pl):
+        if p.is_shard():
+            local[p.dim] //= size
+    return DTensor.from_local(torch.empty(local, dtype=dtype, device=device),
+                              mesh, pl, run_check=False)
+
+
+def abstract_params(defs: Dict[str, Any], dtype: torch.dtype,
+                    device: DeviceLike = None, mesh=None, rules=None):
+    """The params `init_params` would make from `defs`, in their shapes
+    and `dtype`, with nothing allocated (`abstract`): the counterpart of
+    the reference's `abstract_params`. On a DeviceMesh each leaf is a
+    DTensor at its `param_pspecs` spec."""
+    specs = defs if mesh is None else param_pspecs(defs, mesh, rules)
+    return tree_map(lambda d, s: abstract(d.shape, dtype, device, mesh,
+                                          None if mesh is None else s),
+                    defs, specs)
 
 
 def count_params(defs: Dict[str, Any]) -> int:

@@ -24,7 +24,7 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
 from repro_torch.common.config import TrainConfig
-from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.models.params import abstract, tree_leaves, tree_map
 
 
 class AdamState(NamedTuple):
@@ -39,6 +39,29 @@ def init_adam(params) -> AdamState:
     step = torch.zeros((), dtype=torch.int32,
                        device=tree_leaves(params)[0].device)
     return AdamState(step=step, m=tree_map(z, params), v=tree_map(z, params))
+
+
+def abstract_adam(params, specs=None) -> AdamState:
+    """The AdamState `init_adam` would make for `params` (from
+    `abstract_params`), with nothing allocated: float32 moments in the
+    params' shapes, each a DTensor at its spec in `specs` where given (the
+    moments' `zero1_pspecs`), else in its param's placement. The
+    counterpart of the reference's `abstract_adam`."""
+    def z(p, s=None):
+        dev = local(p).device
+        if not isinstance(p, DTensor):
+            return abstract(p.shape, torch.float32, dev)
+        if s is None:
+            return DTensor.from_local(
+                abstract(local(p).shape, torch.float32, dev), p.device_mesh,
+                p.placements, run_check=False)
+        return abstract(p.shape, torch.float32, dev, p.device_mesh, s)
+    def moments():
+        return (tree_map(z, params) if specs is None
+                else tree_map(z, params, specs))
+    dev = local(tree_leaves(params)[0]).device
+    return AdamState(step=abstract((), torch.int32, dev), m=moments(),
+                     v=moments())
 
 
 def lr_schedule(tcfg: TrainConfig, step: torch.Tensor) -> torch.Tensor:

@@ -28,6 +28,12 @@ moments' placement (a reduce-scatter over the data axes), and the update
 all-gathers each param back into its own placement. The metrics are
 replicated. StaticStep captures and replays the body on the DTensors'
 local tensors, with its collectives.
+
+`StaticStep.trace` runs a step's body once on arguments placed as a call
+places them (`placed`), with no copy into buffers and no capture: under
+FakeTensorMode it is the counterpart of `jax.jit(...).lower(...)`, which
+the dry-run records (`launch/dryrun.py`); on real tensors it is the step
+run eagerly.
 """
 from __future__ import annotations
 
@@ -74,9 +80,14 @@ def decompress_int8(qtree):
 def _microbatch(batch: Dict[str, Any], nmb: int, mctx: MeshCtx):
     """(B, ...) -> (nmb, B/nmb, ...), each microbatch over the data axes
     (on a mesh, a redistribution of the batch's DTensors), as this rank's
-    local tensors."""
+    local tensors. DTensor cannot split a dim sharded over more ranks than
+    the new leading size divides, so where nmb is not a multiple of the
+    data ways the batch is gathered whole first."""
     def one(x):
         assert x.shape[0] % nmb == 0, (x.shape, nmb)
+        if isinstance(x, DTensor) and nmb % mctx.dp_size():
+            x = x.redistribute(x.device_mesh,
+                               [Replicate()] * x.device_mesh.ndim)
         y = x.reshape((nmb, x.shape[0] // nmb) + tuple(x.shape[1:]))
         return local(mctx.constraint(
             y, spec(None, mctx.batch_axes, *([None] * (y.dim() - 2)))))
@@ -269,6 +280,13 @@ class StaticStep:
         self.calls = 0          # on the card each but the first a replay
         self.capture_s = 0.0    # warm-up and capture, host wall time
 
+    def trace(self, *args):
+        """The body once on `args` as they are: no copy into the step's
+        buffers, no capture, on any device."""
+        if len(args) != len(self.buffers):
+            raise TypeError(f"the step takes {list(self.buffers)}")
+        return self.body(*args)
+
     def _take(self, name: str, value) -> None:
         static = self.buffers[name]
         if static is BIND:
@@ -359,7 +377,26 @@ def _placing(step, placers):
     def call(*args):
         return step(*(put(a) for put, a in zip(placers, args)))
     call.step = getattr(step, "step", step)
+    call.placers = placers
     return call
+
+
+def placed(step, *args) -> tuple:
+    """`args` placed as a call of `step` (a jit_* step) places them before
+    its body runs: on a mesh each by its placer (the reference's
+    in_shardings), else as they are."""
+    placers = getattr(step, "placers", None)
+    if placers is None:
+        return args
+    return tuple(put(a) for put, a in zip(placers, args))
+
+
+def same_memory(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether a and b start at the same place in one storage, as equal
+    `data_ptr()`s say of real tensors; fake tensors' `data_ptr()` reads 0,
+    so the storages are compared themselves."""
+    return (a.untyped_storage()._cdata == b.untyped_storage()._cdata
+            and a.storage_offset() == b.storage_offset())
 
 
 def _placer(mctx: MeshCtx, specs):
@@ -483,7 +520,7 @@ def jit_decode_step(api: ModelAPI, mctx: MeshCtx, shape: ShapeConfig,
                  "pos": _compute_view(pos, mctx)}, view, mctx)
 
             def write(c, v, n, s):
-                if n is v and v.data_ptr() == local(c).data_ptr():
+                if n is v and same_memory(v, local(c)):
                     return              # updated in place, c's own storage
                 local(c).copy_(local(_placed_output(n, s, mctx)))
             tree_map(lambda c, v, n, s: None if c is None
