@@ -50,8 +50,10 @@ result):
                (1, 200, 2, 64)) against its sequential version to 1e-4;
                then times both scans and their plain versions beside their
                bounds at the prefill (and, for rglru_scan, the decode)
-               shape, rglru_scan's launch floor at (1, 1, 32), wkv6's two
-               kernels (state, out) apart and together;
+               shape and at a microbatch of the train step (rglru_scan
+               forward and reversed at (4, 256, 2560), wkv6 at (4, 256,
+               32, 64)), rglru_scan's launch floor at (1, 1, 32), wkv6's
+               two kernels (state, out) apart and together;
      integrity holds stream_cipher and fletcher bit-exact against their
                plain versions (the reference's test shapes, key 0xC0FFEE
                and nonce 42, ragged u8, float32, bf16 and u8 of 333
@@ -198,6 +200,39 @@ result):
                a device-to-device copy, not a kernel). GPipe needs two
                stages: the phase says so and has no check of it. Then
                13(b) below;
+     families  training the hybrid, ssm and encdec families, in the
+               train phase's style and traffic: (a) recurrentgemma-2b and
+               rwkv6-1.6b whole at full width (attn_impl="flash", float32
+               params computing in bf16, a dpu/RDMA store and its loader,
+               batch 8 of 256 tokens in 2 microbatches, remat): an eager
+               step from the seed's state with every rglru_scan call
+               (forward and reversed) or wkv6 call held against its
+               plain version on its own inputs (1e-5, reversed of the
+               same scan of |a| and |b|, since the gradients it scans
+               cancel; 3e-4 against the sequential recurrence), the
+               state after it kept on the host; the compiled
+               step's first call (its eager warm-up and the capture) and,
+               from the same state again, step 1 replayed, bit for bit
+               the eager step (loss, grad norm, every param and moment);
+               then 9 more replays from the store; the wrapper's launches
+               in the warm-up and the graph's scan kernels (traced
+               replays) equal what the path implies (each recurrent layer
+               twice forward, the forward and remat's recompute, and for
+               rglru_scan once reversed, a microbatch at a time: 72 + 36
+               a step for the hybrid's 18 recurrent layers of 26, 96 wkv6
+               calls for rwkv6's 24), peak memory, capture time, replay
+               time, tokens/s, a traced replay's busy time, idle share
+               and kernels, and rwkv6's wkv6_backward op's share of it;
+               (b) both cut to 2 layers at full width: 30 compiled steps
+               with a checkpoint every 10 and the storage drill at step
+               15, the loss falling, the step-10 checkpoint restored into
+               the step's tensors and steps 11-15 replayed bit for bit;
+               (c) whisper-tiny whole (1,500 x 384 bf16 frames and 448
+               decoder tokens a row) through jit_train_step: the compiled
+               step bit for bit the eager step, the loss falling over 30
+               steps, timed and traced; (d) launch/train.py main on
+               tiny-recurrentgemma-2b and tiny-rwkv6-1.6b through its
+               command line (5 steps, a checkpoint, the drill);
  13. dryrun    the dry-run (launch/dryrun.py) and the roofline
                (roofline/analytic.py) against the steps they model:
                (a) dense-100m's train step (8 x 256, 2 microbatches) and
@@ -215,7 +250,8 @@ result):
                and x prefill_32k on the 16 x 16 mesh of 256 fake ranks in a
                process of its own, started first, with their trace
                seconds; (d) every serve configuration's prefill wave and
-               decode step and the compiled train step: mfu =
+               decode step and the compiled train steps (dense-100m's,
+               and the families phase's): mfu =
                model_flops_per_step(cfg as run, shape as run) / (measured
                s x the bf16 peak), the analytic roofline at MeshPlan(1, 1),
                measured over it and its dominant term, with the card's name
@@ -225,8 +261,9 @@ Each kernel's launch counts are zeroed just before the path that drives it
 (rs_matmul: the ec phase; stream_cipher and fletcher: the step on the
 placed stream; flash_attention_fwd: each of the granite, dbrx and VLM
 serve phases and the mesh phase's step, and its launches are their sum;
-rglru_scan and wkv6: their serve phases; flash_attention_bwd: the train
-phase and the mesh phase's step) and read just after it. A wrapper counts the launches it makes itself; a call captured into a
+rglru_scan and wkv6: their serve phases and their train paths in the
+families phase; flash_attention_bwd: the train phase and the mesh
+phase's step) and read just after it. A wrapper counts the launches it makes itself; a call captured into a
 CUDA graph launches nothing, and each replay of the graph launches what
 the capture recorded, so on the compiled paths a kernel's launches are
 the wrapper's count plus its kernels in each graph (from traced
@@ -1071,6 +1108,7 @@ RGLRU_CASES = [  # B, T, R: the reference's (tests/test_kernels.py:103-104),
 RGLRU_FLOOR = (1, 1, 32)            # one CTA of one warp, one step
 RGLRU_PREFILL = (4, 1024, 2560)     # recurrentgemma-2b: B, T, d_rnn
 RGLRU_DECODE = (4, 1, 2560)
+RGLRU_TRAIN = (4, 256, 2560)        # a microbatch of its train step
 WKV_CASES = [  # B, T, H, hd: the reference's (tests/test_kernels.py:152-154),
     # ragged T, head_dim 16 and 128, T = 1 and the prefill shape
     (1, 64, 2, 32), (2, 96, 2, 64), (1, 33, 1, 64), (1, 128, 4, 64),
@@ -1081,6 +1119,7 @@ WKV_STRONG_CASES = [  # B, T, H, hd, decay: held against the sequential
     # 1e-12 and half near 1, which reach the factored sub-block's underflow
     (1, 64, 1, 32, "all"), (1, 200, 2, 64, "half")]
 WKV_PREFILL = (4, 1024, 32, 64)     # rwkv6-1.6b: B, T, H, hd
+WKV_TRAIN = (4, 256, 32, 64)        # a microbatch of its train step
 
 
 def rglru_bound(B: int, T: int, R: int, h0: bool) -> dict:
@@ -1234,21 +1273,29 @@ def scan_phase(seed: int) -> dict:
     # (prefill with no initial state, decode with h0): `ms` the kernel's
     # device time (profiler), `call_ms` the wrapper's call (CUDA events,
     # launch overhead included), `plain_ms` the plain version
+    # and at a microbatch of the train step, forward and reversed (the
+    # backward's adjoint scan, called through the op as the backward calls
+    # it)
     shapes = {}
-    for leg, (B, T, R), with_h0 in (("prefill", RGLRU_PREFILL, False),
-                                    ("decode", RGLRU_DECODE, True)):
+    for leg, (B, T, R), with_h0, rev in (
+            ("prefill", RGLRU_PREFILL, False, False),
+            ("decode", RGLRU_DECODE, True, False),
+            ("train", RGLRU_TRAIN, False, False),
+            ("train_reverse", RGLRU_TRAIN, False, True)):
         a, b, h0 = scan_inputs(B, T, R)
         h0 = h0 if with_h0 else None
-        ms = kernel_device_ms(lambda: RGK.rglru_scan(a, b, h0), 50,
-                              RGK.KERNEL_NAME)
-        call_ms = cuda_ms(lambda: rops.rglru_scan(a, b, h0), 50)
-        plain_ms = cuda_ms(lambda: rref.rglru_scan_ref(a, b, h0), 10)
+        ms = kernel_device_ms(lambda: RGK.rglru_scan(a, b, h0, reverse=rev),
+                              50, RGK.KERNEL_NAME)
+        call_ms = cuda_ms(lambda: rops._scan(a, b, h0, rev), 50)
+        plain_ms = cuda_ms(lambda: rref.rglru_scan_ref(a, b, h0,
+                                                       reverse=rev), 10)
         bound = rglru_bound(B, T, R, with_h0)
-        shapes[leg] = {"shape": {"B": B, "T": T, "R": R, "h0": with_h0},
+        shapes[leg] = {"shape": {"B": B, "T": T, "R": R, "h0": with_h0,
+                                 "reverse": rev},
                        "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
                        **bound}
         print(f"rglru_scan at the {leg} shape (B={B}, T={T}, R={R}, "
-              f"h0={with_h0}): kernel "
+              f"h0={with_h0}, reverse={rev}): kernel "
               f"{ms:.6f} ms on the device, {call_ms:.6f} ms a call, plain "
               f"{plain_ms:.6f} ms; bound {bound['bound_ms']:.6f} ms by "
               f"{bound['bound_by']}: {bound['bytes']} B / "
@@ -1301,6 +1348,22 @@ def scan_phase(seed: int) -> dict:
           f"{bound['bound_by']}: {bound['bytes']} B / {HBM_BW:.3g} "
           f"B/s = {bound['bytes_ms']:.6f} ms, {bound['flops']} FLOP / "
           f"{FP32_FLOPS:.3g} FLOP/s = {bound['ops_ms']:.6f} ms")
+    # at a microbatch of the train step, as the path calls it (no s0)
+    B, T, H, hd = WKV_TRAIN
+    xs = (randn(B, T, H, hd), 0.5 * randn(B, T, H, hd), randn(B, T, H, hd),
+          torch.exp(-torch.exp(randn(B, T, H, hd))), 0.5 * randn(H, hd))
+    tbound = wkv_bound(B, T, H, hd, s0=False)
+    wkv["train"] = {
+        "shape": {"B": B, "T": T, "H": H, "hd": hd},
+        "ms": kernel_device_ms(lambda: WK.wkv6(*xs), 20, WK.KERNEL_NAME,
+                               per_call=WK.KERNELS_PER_CALL),
+        "call_ms": cuda_ms(lambda: wops.wkv6(*xs), 20),
+        "plain_ms": cuda_ms(lambda: wref.wkv_plain(*xs), 5), **tbound}
+    print(f"wkv6 at the train shape (B={B}, T={T}, H={H}, hd={hd}): both "
+          f"kernels {wkv['train']['ms']:.6f} ms on the device, "
+          f"{wkv['train']['call_ms']:.6f} ms a call, plain "
+          f"{wkv['train']['plain_ms']:.6f} ms; bound "
+          f"{tbound['bound_ms']:.6f} ms by {tbound['bound_by']}")
     return {"rglru": {"max_abs_err": max(worst.values()),
                       "max_abs_err_fwd": worst["fwd"],
                       "max_abs_err_bwd": worst["bwd"], "legs": shapes,
@@ -2758,7 +2821,9 @@ def _train_resume(ckpt, step_fn, params, opt, batches: list, losses: list,
     torch.cuda.synchronize()
     want = losses[TRAIN_RESUME_FROM:TRAIN_RESUME_TO]
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(again, want))
-    errs = [float((a.cpu() - b).abs().max())
+    # (a leaf of 0 layers, a 2-layer hybrid's super-block stacks, has no
+    # element to differ)
+    errs = [float((a.detach().cpu() - b).abs().max()) if b.numel() else 0.0
             for a, b in zip(tree_leaves(params), at_resume_to)]
     identical = again == want and max(errs) == 0.0
     check(loss_rel <= 1e-6 and max(errs) <= 2 * tcfg.lr,
@@ -2775,6 +2840,53 @@ def _train_resume(ckpt, step_fn, params, opt, batches: list, losses: list,
             "resume_identical": identical, "resume_restore_s": restore_s}
 
 
+def _steps_from_store(step_fn, params, opt, loader, ckpt, client) -> tuple:
+    """TRAIN_STEPS calls of the compiled train step on the loader's
+    batches (the first runs eagerly and captures; the rest replay), a
+    checkpoint every TRAIN_CKPT_EVERY steps (its snapshot timed), a
+    storage device killed before step TRAIN_DRILL_AT + 1, and the params
+    after step TRAIN_RESUME_TO kept on the host. Returns (params, opt,
+    the run: losses, grad norms, step times, batches, snapshot times, the
+    kept params, the last checkpoint write's wait and the wall time)."""
+    import torch
+    from repro_torch.distributed.fault import FailureInjector
+    from repro_torch.models.params import tree_leaves
+    run = {"losses": [], "grad_norms": [], "step_s": [], "batches": [],
+           "snapshot_s": []}
+    t_run = time.perf_counter()
+    for step in range(TRAIN_STEPS):
+        if step == TRAIN_DRILL_AT:
+            # the checkpoint of step 10 lands first: a write in flight
+            # when one of its devices dies misses its quorum and the
+            # manager retries nothing, in the reference as in the port
+            # (ROADMAP Queue 3; tests/test_torch_checkpoint.py)
+            ckpt.wait()
+            victim = client.devices[0].name
+            FailureInjector(client.store).kill(victim)
+            print(f"[drill] killed storage device {victim} before step "
+                  f"{step + 1}")
+        t0 = time.perf_counter()
+        host = loader.next_batch()
+        params, opt, metrics = step_fn(params, opt, host)
+        torch.cuda.synchronize()
+        run["step_s"].append(time.perf_counter() - t0)
+        run["losses"].append(float(metrics["loss"]))
+        run["grad_norms"].append(float(metrics["grad_norm"]))
+        run["batches"].append(host)
+        if (step + 1) % TRAIN_CKPT_EVERY == 0:
+            t0 = time.perf_counter()
+            ckpt.save(step + 1, {"params": params, "opt": opt})
+            run["snapshot_s"].append(time.perf_counter() - t0)
+        if step + 1 == TRAIN_RESUME_TO:
+            run["at_resume_to"] = [t.detach().cpu().clone()
+                                   for t in tree_leaves(params)]
+    t0 = time.perf_counter()
+    ckpt.wait()
+    run["last_write_s"] = time.perf_counter() - t0
+    run["wall_s"] = time.perf_counter() - t_run
+    return params, opt, run
+
+
 def train_phase(seed: int, times: dict) -> dict:
     import torch
     from repro_torch.common.config import ShapeConfig, TrainConfig
@@ -2783,8 +2895,7 @@ def train_phase(seed: int, times: dict) -> dict:
     from repro_torch.data.pipeline import (Assignment, ROS2TokenLoader,
                                            write_token_shards)
     from repro_torch.distributed.checkpoint import ROS2CheckpointManager
-    from repro_torch.distributed.fault import (FailureInjector,
-                                               StragglerMonitor)
+    from repro_torch.distributed.fault import StragglerMonitor
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.launch import train as launch_train
     from repro_torch.launch.mesh import make_host_mesh_ctx
@@ -2832,45 +2943,18 @@ def train_phase(seed: int, times: dict) -> dict:
         # keep 3: the step-10 checkpoint stays for the resume below
         ckpt = ROS2CheckpointManager(client, "/ckpt", keep=3)
         mon = StragglerMonitor()
-        injector = FailureInjector(client.store)
 
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launches()
-        losses, gnorms, step_s, batches, snapshot_s = [], [], [], [], []
-        t_run = time.perf_counter()
-        for step in range(TRAIN_STEPS):
-            if step == TRAIN_DRILL_AT:
-                # the checkpoint of step 10 lands first: a write in flight
-                # when one of its devices dies misses its quorum and the
-                # manager retries nothing, in the reference as in the port
-                # (ROADMAP Queue 3; tests/test_torch_checkpoint.py)
-                ckpt.wait()
-                victim = client.devices[0].name
-                injector.kill(victim)
-                print(f"[drill] killed storage device {victim} before step "
-                      f"{step + 1}")
-            t0 = time.perf_counter()
-            host = loader.next_batch()
-            # the first step runs eagerly and captures; the rest replay
-            params, opt, metrics = step_fn(params, opt, host)
-            torch.cuda.synchronize()
-            step_s.append(time.perf_counter() - t0)
-            mon.record(0, step_s[-1])
-            losses.append(float(metrics["loss"]))
-            gnorms.append(float(metrics["grad_norm"]))
-            batches.append(host)
-            if (step + 1) % TRAIN_CKPT_EVERY == 0:
-                t0 = time.perf_counter()
-                ckpt.save(step + 1, {"params": params, "opt": opt})
-                snapshot_s.append(time.perf_counter() - t0)
-            if step + 1 == TRAIN_RESUME_TO:
-                at_resume_to = [t.detach().cpu().clone()
-                                for t in tree_leaves(params)]
-        t0 = time.perf_counter()
-        ckpt.wait()
-        last_write_s = time.perf_counter() - t0
-        wall = time.perf_counter() - t_run
+        params, opt, run = _steps_from_store(step_fn, params, opt, loader,
+                                             ckpt, client)
+        losses, gnorms, step_s, batches, snapshot_s, at_resume_to = (
+            run[k] for k in ("losses", "grad_norms", "step_s", "batches",
+                             "snapshot_s", "at_resume_to"))
+        last_write_s, wall = run["last_write_s"], run["wall_s"]
+        for dt in step_s:
+            mon.record(0, dt)
         launches = ops.launches()
         replays = step_fn.calls - 1      # the first call captures
         peak = torch.cuda.max_memory_allocated()
@@ -3045,6 +3129,584 @@ def train_phase(seed: int, times: dict) -> dict:
     check(np.isfinite(main_loss), f"launch/train.py main: loss {main_loss}")
     stats["main_loss"] = main_loss
     return stats
+
+
+# -- phase 11, continued: training the hybrid, ssm and encdec families --------
+FAMILY_TRAIN = {  # arch -> its scan kernel (and its ops module's name)
+    "recurrentgemma-2b": "rglru_scan",
+    "rwkv6-1.6b": "wkv6",
+}
+FAMILY_STEPS = 10           # (a): compiled steps at full width
+FAMILY_LAYERS = 2           # (b): learning, checkpoints and --resume
+FAMILY_MAIN_ARGS = ["--steps", "5", "--global-batch", "8", "--seq", "256",
+                    "--microbatches", "2", "--ckpt-every", "5",
+                    "--inject-failure-at", "3"]
+WHISPER_TRAIN_STEPS = 30    # (c): whisper-tiny whole
+# (c)'s learning rate: at the other phases' 1e-3 the loss of whisper's 30
+# steps (random frames, the synthetic corpus's decoder tokens) moves less
+# than its spread from step to step; at 1e-2 it climbs
+WHISPER_TRAIN_LR = 3e-3
+
+
+def _scan_calls_implied(cfg, nmb: int) -> tuple:
+    """(the scan kernel's wrapper calls in one eager train step by
+    direction, the kind of its kernels, its kernels in the step's graph):
+    each scan layer's kernel runs once forward in the forward pass and
+    again in remat's recompute of its layer inside the backward (cfg.remat),
+    and rglru_scan once more reversed, for the backward's adjoint scan; a
+    microbatch at a time. wkv6 is two kernels a call."""
+    from repro_torch.models import recurrent
+    check(cfg.remat, f"{cfg.name} without remat")
+    if cfg.family == "hybrid":
+        n_super, n_tail = recurrent.pattern(cfg)
+        n = n_super * cfg.hybrid.rnn_per_attn + n_tail
+        return {"fwd": 2 * n * nmb, "bwd": n * nmb}, "rglru scan", 3 * n * nmb
+    kind, per_call = KERNEL_KIND["wkv6"]
+    return ({"fwd": 2 * cfg.n_layers * nmb}, kind,
+            2 * cfg.n_layers * nmb * per_call)
+
+
+def _held_scan_calls(kernel: str, calls: dict):
+    """A context in which every call of the scan kernel's path (the
+    function of its ops module that launches it: rglru_scan's `_scan`,
+    forward and reversed; wkv6's `_forward`) is held against its plain
+    version on the call's own inputs as it happens, counted in `calls` by
+    direction, its largest error kept in calls["max_abs_err"]. The
+    tolerances are the recurrent serve phase's (`_kernel_ops`): rglru_scan
+    1e-5, wkv6 3e-4 against the sequential recurrence, each atol = rtol.
+    The reversed rglru_scan scans the loss's gradient, whose partial sums
+    cancel (the model's decays hold a_t near 1): its rtol is taken of the
+    same scan of |a| and |b| (the float32 rounding of a linear recurrence
+    grows with the sum of its terms' magnitudes, not with what is left
+    of it), and calls["bwd_scale"] keeps that scan's largest value."""
+    import contextlib
+    import torch
+    kops, _, _, plain_name, tol = _kernel_ops(kernel)
+    if kernel == "rglru_scan":
+        from repro_torch.kernels.rglru_scan import ref
+        name = "_scan"
+
+        def plain(a, b, h0, reverse):
+            return ref.rglru_scan_ref(a, b, h0, reverse=reverse)
+
+        def direction(args):
+            return "bwd" if args[3] else "fwd"
+    else:
+        from repro_torch.kernels.rwkv6_scan import ref
+        name = "_forward"
+
+        def plain(r, k, v, w, u, s0, chunk):
+            return ref.wkv_ref(r, k, v, w, u, s0)
+
+        def direction(args):
+            return "fwd"
+    real = getattr(kops, name)
+
+    def held(*args):
+        out = real(*args)
+        with torch.no_grad():
+            want = plain(*args)
+            scale, top = None, 0.0
+            if direction(args) == "bwd":
+                a, b, h0, reverse = args
+                scale = ref.rglru_scan_ref(a.abs(), b.abs(), None, reverse)
+                top = float(scale.max())
+                calls["bwd_scale"] = max(calls.get("bwd_scale", 0.0), top)
+            for got, w in zip(out if isinstance(out, tuple) else (out,),
+                              want if isinstance(want, tuple) else (want,)):
+                err = float((got - w).abs().max())
+                bound = tol + tol * (w.abs() if scale is None else scale)
+                ok = bool(torch.all((got - w).abs() <= bound))
+                check(ok, f"{kernel} off its {plain_name} by {err} on the "
+                      f"train path's inputs ({direction(args)}; largest "
+                      f"|value| {float(w.abs().max())}, largest of the "
+                      f"scan of magnitudes {top})")
+                key = f"max_abs_err_{direction(args)}"
+                calls[key] = max(calls.get(key, 0.0), err)
+                calls["max_abs_err"] = max(calls["max_abs_err"], err)
+        calls[direction(args)] += 1
+        return out
+
+    @contextlib.contextmanager
+    def holding():
+        setattr(kops, name, held)       # looked up at each call
+        try:
+            yield
+        finally:
+            setattr(kops, name, real)
+    return holding()
+
+
+def _reset_train_state(params, opt, start: list) -> None:
+    """The train state back to step 0 in place (the compiled step's own
+    tensors): the params copied from their host copy `start`, the moments
+    and the step zeroed."""
+    import torch
+    from repro_torch.models.params import tree_leaves
+    with torch.no_grad():
+        for leaf, host in zip(tree_leaves(params), start, strict=True):
+            leaf.copy_(host)
+        for t in tree_leaves(opt.m) + tree_leaves(opt.v):
+            t.zero_()
+        opt.step.zero_()
+
+
+HELD_CHUNK = 1 << 26            # elements a piece of a leaf held on the card
+
+
+def _held_to_host(got: list, want: list, metrics, want_metrics: dict,
+                  lr: float, label: str) -> dict:
+    """The compiled step's state leaves and metrics on the card against an
+    eager step's kept on the host, each leaf copied back to the card a
+    piece of HELD_CHUNK elements at a time (a full-width recurrentgemma-2b
+    state and its graph's pool leave no room for a whole embedding): bit
+    for bit, or else within the train tests' tolerances (loss 1e-6
+    relative, the rest 2 lr)."""
+    import torch
+    identical = all(float(metrics[k]) == want_metrics[k]
+                    for k in ("loss", "grad_norm", "lr"))
+    state_err = 0.0
+    with torch.no_grad():
+        for a, host in zip(got, want, strict=True):
+            a, host = a.reshape(-1), host.reshape(-1)
+            for i in range(0, a.numel(), HELD_CHUNK):
+                x = a[i:i + HELD_CHUNK]
+                y = host[i:i + HELD_CHUNK].to(x.device)
+                identical &= bool(torch.equal(x, y))
+                state_err = max(state_err,
+                                float((x.float() - y.float()).abs().max()))
+    loss_rel = abs(float(metrics["loss"]) - want_metrics["loss"]) / abs(
+        want_metrics["loss"])
+    check(loss_rel <= 1e-6 and state_err <= 2 * lr, f"{label}: the compiled "
+          f"step off the eager step: loss {loss_rel}, state {state_err}")
+    return {"identical": identical, "loss_rel": loss_rel,
+            "state_max_abs_diff": state_err}
+
+
+def _family_full(arch: str, client, seed: int, times: dict) -> dict:
+    """(a) `arch` at full width and depth: an eager step from the seed's
+    state, every scan call held against its plain version, its state kept
+    on the host; the state reset (the params from their host copy), the
+    compiled step's first call (a warm-up that runs the body eagerly and
+    is timed as the eager step, then the capture), the state reset again
+    and step 1 replayed, bit for bit the eager step; steps 2 to
+    FAMILY_STEPS replayed on the loader's batches; the launches against
+    the path's; a traced replay."""
+    import torch
+    from repro_torch.common.config import ShapeConfig, TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import ROS2TokenLoader
+    from repro_torch.launch.mesh import make_host_mesh_ctx
+    from repro_torch.models.api import ModelAPI
+    from repro_torch.models.params import count_params, tree_leaves
+    from repro_torch.train.optimizer import init_adam
+    from repro_torch.train.trainer import jit_train_step, make_train_step
+
+    kernel = FAMILY_TRAIN[arch]
+    kops = _kernel_ops(kernel)[0]
+    cfg = get_config(arch).replace(attn_impl="flash")
+    api = ModelAPI(cfg)
+    mctx = make_host_mesh_ctx(cfg)
+    per_step, kind, per_replay = _scan_calls_implied(cfg, TRAIN_MICROBATCHES)
+    want = {"bwd": 0, **per_step}
+    tcfg = TrainConfig(lr=1e-3, total_steps=FAMILY_STEPS,
+                       warmup_steps=max(1, FAMILY_STEPS // 10),
+                       num_microbatches=TRAIN_MICROBATCHES)
+    params = _init_on_card(api, seed, times, f"train {arch}")
+    opt = init_adam(params)
+    start = [t.detach().cpu() for t in tree_leaves(params)]
+    loader = ROS2TokenLoader(client, "/data", global_batch=TRAIN_BATCH,
+                             seq_len=TRAIN_SEQ, prefetch=2,
+                             hedge_timeout_s=0.5)
+    try:
+        first = loader.next_batch()
+        batch = {k: torch.from_numpy(v).to("cuda") for k, v in first.items()}
+        calls = {"fwd": 0, "bwd": 0, "max_abs_err": 0.0}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _held_scan_calls(kernel, calls):
+            # the params and moments are updated in place; the step count
+            # comes back as a new tensor
+            params, opt, m_e = make_train_step(api, tcfg, mctx)(
+                params, opt, batch)
+        torch.cuda.synchronize()
+        held_s = time.perf_counter() - t0
+        del batch
+        got = {k: calls[k] for k in ("fwd", "bwd")}
+        check(got == want, f"{arch}: {got} {kernel} calls in an eager step, "
+              f"the path implies {want}")
+        lr = float(m_e["lr"])
+        m_e = {k: float(v) for k, v in m_e.items()}
+        t0 = time.perf_counter()
+        host = [t.detach().cpu() for t in _state_leaves(params, opt)]
+        host_s = time.perf_counter() - t0
+
+        # the main path: counts from 0, the compiled step's first call (the
+        # warm-up, the eager body on a side stream, then the capture)
+        step_fn = jit_train_step(api, tcfg, mctx, ShapeConfig(
+            "train", TRAIN_SEQ, TRAIN_BATCH, "train"))
+        _reset_train_state(params, opt, start)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kops.reset_launches()
+        step_s = []
+        t_run = time.perf_counter()
+        t0 = time.perf_counter()
+        params, opt, _ = step_fn(params, opt, first)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        wrapper = kops.launches()
+        # step 1 again, replayed from the same state
+        _reset_train_state(params, opt, start)
+        del start
+        t0 = time.perf_counter()
+        params, opt, m_c = step_fn(params, opt, first)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        held = _held_to_host(_state_leaves(params, opt), host, m_c, m_e, lr,
+                             f"{arch} replay")
+        compare_s = time.perf_counter() - t0
+        del host
+        check(held["identical"], f"{arch}: step 1 replayed is not bit for "
+              f"bit the eager step: {held}")
+        losses = [float(m_c["loss"])]
+        for _ in range(FAMILY_STEPS - 1):
+            t0 = time.perf_counter()
+            hb = loader.next_batch()
+            params, opt, metrics = step_fn(params, opt, hb)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+        wall = time.perf_counter() - t_run
+        replays = step_fn.calls - 1
+        check(kops.launches() == wrapper, f"{arch}: a replay launched "
+              f"through the wrapper: {kops.launches()} after {wrapper}")
+        peak = torch.cuda.max_memory_allocated()
+        check(all(np.isfinite(losses)), f"{arch}: losses {losses}")
+        check({d: wrapper.get(d, 0) for d in want} == want,
+              f"{arch}: {wrapper} {kernel} launches in the compiled step's "
+              f"first call (its eager warm-up), the path implies {want}")
+
+        # the graph's kernels, from traced replays until one trace shows
+        # the path's scan kernels (the profiler only ever loses records)
+        seen = []
+        t0 = time.perf_counter()
+        for _ in range(TRACE_ATTEMPTS):
+            trace = device_breakdown(lambda: step_fn(params, opt, first))
+            seen.append(trace["device_ops_by_kind"].get(kind, 0))
+            if seen[-1] == per_replay:
+                break
+        trace_s = time.perf_counter() - t0
+        check(max(seen) == per_replay, f"{arch}: {seen} {kind} kernels in "
+              f"traced replays, the path implies {per_replay}")
+        # each replay launches the graph's scan kernels: a call's worth each
+        launches = {d: want[d] * (1 + replays) for d in want}
+    finally:
+        loader.close()
+    med = float(np.median(step_s[2:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    out = {
+        "n_layers": cfg.n_layers, "n_params": count_params(api.param_defs()),
+        "steps": FAMILY_STEPS, "step_s": step_s, "losses": losses,
+        "step_s_median_replays": med, "tokens_per_s": tokens / med,
+        "wall_s": wall, "capture_s": step_fn.capture_s,
+        "eager_step_s": step_fn.warmup_s, "held_eager_step_s": held_s,
+        "host_copy_s": host_s, "compare_s": compare_s, "trace_s": trace_s,
+        "replay_vs_eager": held,
+        "captured_vs_eager_identical": held["identical"],
+        "scan_calls_per_eager_step": got,
+        "scan_max_abs_err": calls["max_abs_err"], "scan_calls": calls,
+        "scan_kernels_per_replay": per_replay, "replays": replays,
+        "launches": launches, "launches_by_wrapper": wrapper,
+        "trace_replay": trace, "peak_mem_gb": peak / 1e9}
+    print(f"[train {arch}] {cfg.name}, {cfg.n_layers} layers at full width: "
+          f"eager step {step_fn.warmup_s:.3f} s (the compiled step's "
+          f"warm-up; {held_s:.3f} s with every {kernel} call held against "
+          f"its plain version: {got} calls, {calls}); first call "
+          f"{step_s[0]:.3f} s (capture and warm-up {step_fn.capture_s:.3f} "
+          f"s); step 1 replayed from the same state "
+          f"{'bit for bit' if held['identical'] else 'not bit for bit'} the "
+          f"eager step (loss {held['loss_rel']:.3e} relative, state "
+          f"{held['state_max_abs_diff']:.3e}); replay {med:.6f} s median, "
+          f"{tokens / med:.3f} tok/s; loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; peak {peak / 1e9:.3f} GB; traced replay "
+          f"({trace_s:.1f} s to trace): wall {trace['wall_s']:.6f} s, busy "
+          f"{trace['device_busy_s']:.6f} s, idle {trace['idle_share']:.4f}, "
+          f"{trace['device_ops']} device operations, {max(seen)} {kind} "
+          f"kernels (the path: {per_replay}); {kernel} launches {launches} = "
+          f"{wrapper} by the wrapper in the warm-up + the graph's x "
+          f"{replays} replays; host copy {host_s:.1f} s, compare "
+          f"{compare_s:.1f} s")
+    if kernel == "wkv6":
+        out.update(_wkv_backward_share(cfg, seed, trace))
+    del step_fn, params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _wkv_backward_share(cfg, seed: int, replay: dict) -> dict:
+    """The `repro_torch::wkv6_backward` op's share of a replayed train
+    step: one call at the step's shape (a microbatch, no s0) traced for its
+    device busy time and kernels, and captured alone and its replay timed;
+    times the calls a step makes (a layer and microbatch)."""
+    import torch
+    B = TRAIN_BATCH // TRAIN_MICROBATCHES
+    H, hd = cfg.d_model // cfg.rwkv.head_dim, cfg.rwkv.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+
+    def n(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+    shape = (B, TRAIN_SEQ, H, hd)
+    args = (n(*shape), 0.5 * n(*shape), n(*shape),
+            torch.exp(-torch.exp(n(*shape))), 0.5 * n(H, hd), None, n(*shape),
+            n(B, H, hd, hd))
+
+    def call():
+        return torch.ops.repro_torch.wkv6_backward(*args)
+    call()
+    one = device_breakdown(call)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph, stream=side,
+                          capture_error_mode="thread_local"):
+        call()
+    replay_ms = cuda_ms(graph.replay, 5)
+    del graph
+    calls = cfg.n_layers * TRAIN_MICROBATCHES
+    busy_share = calls * one["device_busy_s"] / replay["device_busy_s"]
+    wall_share = calls * replay_ms / 1e3 / replay["wall_s"]
+    print(f"[train {cfg.name}] wkv6_backward at {shape}: one call "
+          f"{one['device_busy_s'] * 1e3:.3f} ms busy in {one['device_ops']} "
+          f"device operations ({one['wall_s'] * 1e3:.3f} ms eager), "
+          f"{replay_ms:.3f} ms as a graph replay; {calls} calls a step: "
+          f"{busy_share:.4f} of a replayed step's busy time, "
+          f"{wall_share:.4f} of its wall time")
+    return {"wkv6_backward": {"shape": list(shape), "trace": one,
+                              "graph_replay_ms": replay_ms,
+                              "calls_per_step": calls,
+                              "busy_share": busy_share,
+                              "wall_share": wall_share}}
+
+
+def _family_cut(arch: str, client, seed: int, times: dict) -> dict:
+    """(b) `arch` cut to FAMILY_LAYERS layers at full width, as the dense
+    phase trains: TRAIN_STEPS compiled steps from the store, a checkpoint
+    every TRAIN_CKPT_EVERY, a storage device killed at TRAIN_DRILL_AT once
+    the checkpoint of step 10 has landed; the loss must fall, and the
+    step-10 checkpoint restore into the step's tensors and steps 11-15
+    replay bit for bit (`_train_resume`)."""
+    import torch
+    from repro_torch.common.config import ShapeConfig, TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import ROS2TokenLoader
+    from repro_torch.distributed.checkpoint import ROS2CheckpointManager
+    from repro_torch.launch.mesh import make_host_mesh_ctx
+    from repro_torch.models.api import ModelAPI
+    from repro_torch.train.optimizer import init_adam
+    from repro_torch.train.trainer import jit_train_step
+
+    cfg = get_config(arch).replace(attn_impl="flash", n_layers=FAMILY_LAYERS)
+    api = ModelAPI(cfg)
+    mctx = make_host_mesh_ctx(cfg)
+    tcfg = TrainConfig(lr=1e-3, total_steps=TRAIN_STEPS,
+                       warmup_steps=max(1, TRAIN_STEPS // 10),
+                       num_microbatches=TRAIN_MICROBATCHES)
+    params = _init_on_card(api, seed, times, f"train {arch} cut")
+    opt = init_adam(params)
+    step_fn = jit_train_step(api, tcfg, mctx, ShapeConfig(
+        "train", TRAIN_SEQ, TRAIN_BATCH, "train"))
+    ckpt = ROS2CheckpointManager(client, f"/ckpt-{arch}", keep=3)
+    loader = ROS2TokenLoader(client, "/data", global_batch=TRAIN_BATCH,
+                             seq_len=TRAIN_SEQ, prefetch=2,
+                             hedge_timeout_s=0.5)
+    try:
+        params, opt, run = _steps_from_store(step_fn, params, opt, loader,
+                                             ckpt, client)
+    finally:
+        loader.close()
+    losses, step_s, snapshot_s, wall, last_write_s = (
+        run[k] for k in ("losses", "step_s", "snapshot_s", "wall_s",
+                         "last_write_s"))
+    check(all(np.isfinite(losses)), f"{arch} cut: losses {losses}")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    check(last < first, f"{arch} cut to {FAMILY_LAYERS} layers: the loss did "
+          f"not fall: first 5 steps {first}, last 5 {last}")
+    out = {"n_layers": FAMILY_LAYERS, "losses": losses, "loss_first5": first,
+           "loss_last5": last, "step_s": step_s,
+           "step_s_median": float(np.median(step_s[1:])), "wall_s": wall,
+           "ckpt_saves": ckpt.saves, "ckpt_bytes_written": ckpt.bytes_written,
+           "ckpt_snapshot_s": snapshot_s, "ckpt_last_write_s": last_write_s}
+    out.update(_train_resume(ckpt, step_fn, params, opt, run["batches"],
+                             losses, run["at_resume_to"], tcfg))
+    check(out["resume_identical"], f"{arch} cut: the resumed steps are not "
+          "bit for bit the uninterrupted run's")
+    print(f"[train {arch}] cut to {FAMILY_LAYERS} layers: {TRAIN_STEPS} "
+          f"steps, loss {losses[0]:.4f} -> {losses[-1]:.4f} (first 5 "
+          f"{first:.4f}, last 5 {last:.4f}); step {out['step_s_median']:.6f}"
+          f" s median; {ckpt.saves} checkpoints, {ckpt.bytes_written} B, "
+          f"snapshots {snapshot_s} s, last write {last_write_s:.3f} s; the "
+          f"drill at step {TRAIN_DRILL_AT + 1}; wall {wall:.3f} s")
+    del step_fn, params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_family_phase(arch: str, seed: int, times: dict) -> dict:
+    """(a) and (b) for `arch` from one dpu/RDMA store holding the dense
+    phase's corpus size of the arch's vocabulary, then (d)
+    launch/train.py main on its tiny config through the command line."""
+    from repro_torch.core import ROS2Client
+    from repro_torch.data.pipeline import write_token_shards
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    need = TRAIN_STEPS * TRAIN_BATCH * (TRAIN_SEQ + 1) + TRAIN_SEQ + 1
+    client = ROS2Client(mode="dpu", transport="rdma", n_devices=4)
+    try:
+        write_token_shards(client, "/data", launch_train.synth_tokens(
+            get_config(arch).vocab, need, seed))
+        t0 = time.perf_counter()
+        stats = {"full": _family_full(arch, client, seed, times)}
+        times[f"train_{arch}_full_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        stats["cut"] = _family_cut(arch, client, seed, times)
+        times[f"train_{arch}_cut_s"] = time.perf_counter() - t0
+        stats["dpu_ops"] = client.dpu.ops_processed
+    finally:
+        client.close()
+    t0 = time.perf_counter()
+    loss = launch_train.main(["--arch", f"tiny-{arch}", *FAMILY_MAIN_ARGS])
+    times[f"train_{arch}_main_s"] = time.perf_counter() - t0
+    check(np.isfinite(loss), f"launch/train.py main --arch tiny-{arch}: "
+          f"loss {loss}")
+    stats["main_loss"] = loss
+    return stats
+
+
+def train_whisper_phase(seed: int, times: dict) -> dict:
+    """(c) whisper-tiny whole through jit_train_step: 1,500 x 384 bf16
+    frames a row made on the card from the seed and DEC_PRIME decoder
+    tokens from the synthetic corpus (the reference's train input_specs),
+    8 rows in 2 microbatches, WHISPER_TRAIN_STEPS steps; the compiled step
+    against the eager step from the same state, bit for bit; the loss must
+    fall."""
+    import torch
+    from repro_torch.common.config import ShapeConfig, TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_host_mesh_ctx
+    from repro_torch.models.api import DEC_PRIME, ModelAPI
+    from repro_torch.models.params import count_params
+    from repro_torch.train.optimizer import init_adam
+    from repro_torch.train.trainer import (jit_train_step, make_train_step,
+                                           map_tree)
+
+    cfg = get_config(WHISPER).replace(attn_impl="flash")
+    api = ModelAPI(cfg)
+    mctx = make_host_mesh_ctx(cfg)
+    n_frames = cfg.encdec.n_frames
+    shape = ShapeConfig("train", n_frames, TRAIN_BATCH, "train")
+    tcfg = TrainConfig(lr=WHISPER_TRAIN_LR,
+                       total_steps=WHISPER_TRAIN_STEPS,
+                       warmup_steps=max(1, WHISPER_TRAIN_STEPS // 10),
+                       num_microbatches=TRAIN_MICROBATCHES)
+    params = _init_on_card(api, seed, times, f"train {WHISPER}")
+    opt = init_adam(params)
+    rows = launch_train.synth_tokens(
+        cfg.vocab, WHISPER_TRAIN_STEPS * TRAIN_BATCH * (DEC_PRIME + 1),
+        seed).reshape(WHISPER_TRAIN_STEPS, TRAIN_BATCH, DEC_PRIME + 1)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+
+    def batch(i: int) -> dict:
+        return {"frames": torch.randn(
+                    (TRAIN_BATCH, n_frames, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16),
+                "tokens": torch.from_numpy(rows[i, :, :-1]).to("cuda"),
+                "labels": torch.from_numpy(rows[i, :, 1:]).to("cuda")}
+    step_fn = jit_train_step(api, tcfg, mctx, shape)
+    eager_step = make_train_step(api, tcfg, mctx)
+    # step 1 from the same state, eager and compiled (its first call: the
+    # warm-up, then the capture); then a replay from the same state
+    b0 = batch(0)
+    p_e = map_tree(lambda t: t.detach().clone(), params)
+    s_e = map_tree(lambda t: t.detach().clone(), opt)
+    start = (map_tree(lambda t: t.detach().clone(), params),
+             map_tree(lambda t: t.detach().clone(), opt))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p_e, s_e, m_e = eager_step(p_e, s_e, b0)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    ops.reset_launches()
+    step_s = []
+    for _ in range(2):
+        with torch.no_grad():
+            map_tree(lambda d, s: d.copy_(s), (params, opt), start)
+        t0 = time.perf_counter()
+        params, opt, m_c = step_fn(params, opt, b0)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    got = _state_leaves(params, opt)
+    want = _state_leaves(p_e, s_e)
+    identical = all(bool(torch.equal(m_c[k], m_e[k]))
+                    for k in ("loss", "grad_norm", "lr"))
+    identical &= all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+    state_err = max(float((a.detach().float() - b.detach().float()).abs()
+                          .max()) for a, b in zip(got, want))
+    loss_rel = abs(float(m_c["loss"]) - float(m_e["loss"])) / float(
+        m_e["loss"])
+    check(loss_rel <= 1e-6 and state_err <= 2 * float(m_e["lr"]),
+          f"{WHISPER}: the compiled step off the eager step: loss "
+          f"{loss_rel}, state {state_err}")
+    del p_e, s_e, start, got, want
+    losses = [float(m_c["loss"])]
+    t_run = time.perf_counter()
+    for i in range(1, WHISPER_TRAIN_STEPS):
+        b = batch(i)
+        t0 = time.perf_counter()
+        params, opt, metrics = step_fn(params, opt, b)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+    wall = time.perf_counter() - t_run
+    check(ops.launches()["fwd"] == 0 and ops.launches()["bwd"] == 0,
+          f"{WHISPER}: a flash launch on the train path: {ops.launches()}")
+    trace, _ = graph_kernels(lambda: step_fn(params, opt, b0))
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    check(all(np.isfinite(losses)) and last < first,
+          f"{WHISPER}: the loss did not fall: first 5 {first}, last 5 {last}")
+    med = float(np.median(step_s[2:]))
+    tokens = TRAIN_BATCH * DEC_PRIME
+    print(f"[train {WHISPER}] whole, frames ({TRAIN_BATCH}, {n_frames}, "
+          f"{cfg.d_model}) bf16, {DEC_PRIME} decoder tokens a row: compiled "
+          f"step {'bit for bit' if identical else 'not bit for bit'} the "
+          f"eager step (loss {loss_rel:.3e} relative, state {state_err:.3e})"
+          f"; eager {eager_s:.3f} s, first call {step_s[0]:.3f} s (capture "
+          f"{step_fn.capture_s:.3f} s), replay {med:.6f} s median, "
+          f"{tokens / med:.3f} decoder tok/s; loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} (first 5 {first:.4f}, last 5 {last:.4f}); "
+          f"traced replay: wall {trace['wall_s']:.6f} s, busy "
+          f"{trace['device_busy_s']:.6f} s, idle {trace['idle_share']:.4f}, "
+          f"{trace['device_ops']} device operations")
+    out = {"captured_vs_eager_identical": identical,
+           "captured_vs_eager_loss_rel": loss_rel,
+           "captured_vs_eager_state_max_abs_diff": state_err,
+           "eager_step_s": eager_s, "step_s": step_s,
+           "step_s_median_replays": med, "tokens_per_s": tokens / med,
+           "capture_s": step_fn.capture_s, "wall_s": wall, "losses": losses,
+           "loss_first5": first, "loss_last5": last, "trace_replay": trace,
+           "n_params": count_params(api.param_defs())}
+    del step_fn, params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 # -- phase 12: the multi-device layer on a one-rank NCCL group -----------------
@@ -3471,7 +4133,8 @@ def dryrun_card_checks(seed: int) -> dict:
     return out
 
 
-def roofline_shares(card: str, serve: dict, train: dict) -> dict:
+def roofline_shares(card: str, serve: dict, train: dict,
+                    families: dict) -> dict:
     """13(d): each path's model-FLOP share and roofline share from the
     times the earlier phases measured (compiled steps): mfu =
     model_flops_per_step(cfg as run, shape as run) / (measured s x the
@@ -3518,14 +4181,23 @@ def roofline_shares(card: str, serve: dict, train: dict) -> dict:
         row(f"{arch} decode step", cfg,
             ShapeConfig("decode", max_seq, SERVE_BATCH, "decode"),
             stats["decode_ms_per_step"] / 1e3)
-    row("dense-100m train step", get_config("dense-100m"),
-        ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train"),
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    row("dense-100m train step", get_config("dense-100m"), shape,
         train["step_s_median_replays"], TRAIN_MICROBATCHES)
+    for arch in FAMILY_TRAIN:
+        full = families[arch]["full"]
+        row(f"{arch} train step", get_config(arch).replace(
+            n_layers=full["n_layers"]), shape, full["step_s_median_replays"],
+            TRAIN_MICROBATCHES)
+    whisper = get_config(WHISPER)
+    row(f"{WHISPER} train step", whisper, ShapeConfig(
+        "train", whisper.encdec.n_frames, TRAIN_BATCH, "train"),
+        families[WHISPER]["step_s_median_replays"], TRAIN_MICROBATCHES)
     return rows
 
 
 def dryrun_phase(seed: int, card: str, serve: dict, train: dict,
-                 times: dict) -> dict:
+                 families: dict, times: dict) -> dict:
     """Phase 13: (c) started first, in a process of its own; (a) the
     dry-run against the steps it models, on the card; (d) the roofline
     shares of every serve and train path; then (c)'s records."""
@@ -3534,7 +4206,7 @@ def dryrun_phase(seed: int, card: str, serve: dict, train: dict,
     try:
         steps = dryrun_card_checks(seed)
         times["dryrun_card_s"] = time.perf_counter() - t0
-        shares = roofline_shares(card, serve, train)
+        shares = roofline_shares(card, serve, train, families)
         out = _dryrun_result(prod)
     finally:
         prod.kill()
@@ -3684,14 +4356,27 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         train = train_phase(args.seed, times)
         times["train_phase_s"] = time.perf_counter() - t0
-
         t0 = time.perf_counter()
         mesh = mesh_phase(args.seed, times)
         times["mesh_phase_s"] = time.perf_counter() - t0
 
+        # after the mesh phase: run before it, they left the profiler
+        # losing records in the mesh phase's single traces (on an NVIDIA
+        # H100 80GB HBM3 at 700 W, 1 and 3 device copies traced where the
+        # same calls show 3 and 9 otherwise); the families' traces retry
+        families = {}
+        for arch in FAMILY_TRAIN:
+            t0 = time.perf_counter()
+            families[arch] = train_family_phase(arch, args.seed, times)
+            times[f"train_{arch}_phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        families[WHISPER] = train_whisper_phase(args.seed, times)
+        times[f"train_{WHISPER}_phase_s"] = time.perf_counter() - t0
+
         dry = dryrun_phase(args.seed, card, {
             "granite-3-2b": serve, **rec_serve, **moe_serve,
-            VLM: vlm_serve, WHISPER: whisper_serve}, train, times)
+            VLM: vlm_serve, WHISPER: whisper_serve}, train, families,
+            times)
         torch.cuda.synchronize()
     except Exception:
         traceback.print_exc()
@@ -3708,6 +4393,8 @@ def main(argv=None) -> int:
                         (VLM, vlm_serve), (WHISPER, whisper_serve)):
         print(f"serve {arch}:", json.dumps(stats))
     print("train:", json.dumps(train))
+    for arch, stats in families.items():
+        print(f"train {arch}:", json.dumps(stats))
     print("mesh:", json.dumps(mesh))
     print("dryrun:", json.dumps(dry))
     # flash_attention_fwd's serve paths, each counted from 0 just before it
@@ -3720,6 +4407,11 @@ def main(argv=None) -> int:
         leg["launches"] = flash_paths[arch]
     bwd = flash_bwd["shapes"]["train"]
     rgp, wkv = scans["rglru"]["legs"]["prefill"], scans["wkv"]
+    # the scans' serve and train paths, each counted from 0 just before it
+    scan_paths = {kernel: {
+        "serve": rec_serve[arch]["kernel_launches"],
+        "train": sum(families[arch]["full"]["launches"].values())}
+        for arch, kernel in FAMILY_TRAIN.items()}
     print(json.dumps({"kernels": [{
         "name": "rs_matmul", "route": "cuda", "source": K.SOURCE,
         "replaces": K.REPLACES, "launches": total,
@@ -3758,7 +4450,10 @@ def main(argv=None) -> int:
         "bf16_kernels": tensor_cores["flash_attention_bwd"]}, {
         "name": "rglru_scan", "route": "cuda", "source": RGK.SOURCE,
         "replaces": RGK.REPLACES,
-        "launches": rec_serve["recurrentgemma-2b"]["kernel_launches"],
+        "launches": sum(scan_paths["rglru_scan"].values()),
+        "launches_by_path": scan_paths["rglru_scan"],
+        "train_launches_by_direction": families["recurrentgemma-2b"]["full"][
+            "launches"],
         "max_abs_err": scans["rglru"]["max_abs_err"], "ms": rgp["ms"],
         "call_ms": rgp["call_ms"], "plain_ms": rgp["plain_ms"],
         "bound_ms": rgp["bound_ms"], "bound_by": rgp["bound_by"],
@@ -3767,7 +4462,10 @@ def main(argv=None) -> int:
         "floor_call_ms": scans["rglru"]["floor_call_ms"]}, {
         "name": "wkv6", "route": "cuda", "source": WK.SOURCE,
         "replaces": WK.REPLACES,
-        "launches": rec_serve["rwkv6-1.6b"]["kernel_launches"],
+        "launches": sum(scan_paths["wkv6"].values()),
+        "launches_by_path": scan_paths["wkv6"],
+        "train": wkv["train"],
+        "train_backward": families["rwkv6-1.6b"]["full"]["wkv6_backward"],
         "max_abs_err": wkv["max_abs_err"], "ms": wkv["ms"],
         "call_ms": wkv["call_ms"], "plain_ms": wkv["plain_ms"],
         "bound_ms": wkv["bound_ms"], "bound_by": wkv["bound_by"],

@@ -88,9 +88,11 @@ def _flatten_named(tree) -> List[Tuple[str, Any]]:
 
 
 def _to_host(leaf) -> Tuple[np.ndarray, str]:
-    """(host array of the leaf's bytes, its dtype name)."""
+    """(host array of a copy of the leaf's bytes, its dtype name). A copy
+    even on the CPU: the train step updates its params and moments in
+    place while the writer thread still reads the snapshot."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
+        t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
         arr = t.numpy()

@@ -152,13 +152,16 @@ def _mesh_sum(loss, grads, like, mctx: MeshCtx):
 
 def value_and_grad(api: ModelAPI, params, batch, mctx: MeshCtx):
     """(loss, grads) of `api.loss` with respect to the params, which are
-    leaf tensors; grads mirror params in their dtype."""
+    leaf tensors; grads mirror params in their dtype. A param the loss
+    does not use gets zeros, as under jax.grad (a hybrid of fewer layers
+    than a super-block keeps its super-blocks' stacks with 0 layers)."""
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
     with torch.enable_grad():
         loss = api.loss(params, batch, mctx)
-        flat = iter(torch.autograd.grad(loss, leaves))
+        flat = iter(torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True))
     return loss.detach(), tree_map(lambda _: next(flat), params)
 
 
@@ -181,6 +184,9 @@ def make_train_step(api: ModelAPI, tcfg: TrainConfig, mctx: MeshCtx):
                                          mctx)
                 tree_map(lambda a, b: a.add_(b.to(adt)), grads, g)
                 loss_sum = loss if loss_sum is None else loss_sum + loss
+                # a microbatch's gradients go as soon as they are added:
+                # the update needs only the sum
+                del g
             loss = loss_sum / nmb
             tree_map(lambda g: g.div_(nmb), grads)
         else:
@@ -262,13 +268,13 @@ class StaticStep:
 
     On a CUDA device the first call runs the body on a side stream, which
     warms up the libraries, the allocator and autograd and is that call's
-    step; the body is then captured into a CUDA graph, and every later
-    call is one replay, which returns the graph's outputs (the next
-    replay overwrites them). A capture or a replay that fails raises:
-    there is no eager fallback on the card. Steps given one `pool`
-    (`torch.cuda.graph_pool_handle()`) share their graphs' memory and must
-    run one at a time, as an engine's prefill and decode do. On the CPU
-    the body runs eagerly on the same buffers."""
+    step (`warmup_s` times it); the body is then captured into a CUDA
+    graph, and every later call is one replay, which returns the graph's
+    outputs (the next replay overwrites them). A capture or a replay that
+    fails raises: there is no eager fallback on the card. Steps given one
+    `pool` (`torch.cuda.graph_pool_handle()`) share their graphs' memory
+    and must run one at a time, as an engine's prefill and decode do. On
+    the CPU the body runs eagerly on the same buffers."""
 
     def __init__(self, body: Callable, device, buffers: Dict[str, Any],
                  pool=None):
@@ -279,6 +285,7 @@ class StaticStep:
         self.copies = 0         # leaves copied into the buffers
         self.calls = 0          # on the card each but the first a replay
         self.capture_s = 0.0    # warm-up and capture, host wall time
+        self.warmup_s = 0.0     # the warm-up alone (the body run eagerly)
 
     def trace(self, *args):
         """The body once on `args` as they are: no copy into the step's
@@ -335,6 +342,8 @@ class StaticStep:
         side.wait_stream(main)
         with torch.cuda.stream(side):
             out = self.body(*self.buffers.values())
+        side.synchronize()
+        self.warmup_s = time.perf_counter() - t0
         main.wait_stream(side)
         for t in _tensors(out):
             local(t).record_stream(main)
@@ -346,6 +355,11 @@ class StaticStep:
         # thread_local: the storage client's and the loader's threads may
         # call CUDA while this one captures
         gc.collect()
+        # the warm-up's memory, cached in the default pool, handed back: the
+        # graph's private pool cannot reuse it, and the allocator frees no
+        # cached block while a capture is under way, so a step whose peak
+        # fits the card once would not fit it twice
+        torch.cuda.empty_cache()
         collecting = gc.isenabled()
         gc.disable()
         try:

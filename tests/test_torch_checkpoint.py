@@ -172,6 +172,23 @@ def test_gc_and_uncommitted_steps(clients):
         lambda t: t.numpy(), tree["params"]))
 
 
+def test_save_snapshots_the_state_before_it_returns(clients):
+    """The train step updates params and moments in place (on the CPU
+    too) while the writer thread streams the last snapshot: what lands is
+    the state at save(), not the state the writer reads later."""
+    _, port = clients
+    _, tree = _train_state()
+    want = jax.tree.map(lambda t: t.numpy().copy(), tree)
+    mgr = ckpt.ROS2CheckpointManager(port, "/ckpt", keep=2)
+    mgr.save(1, tree)
+    for leaf in jax.tree.leaves(tree):
+        leaf.add_(1)
+    step, got = mgr.restore(tree)
+    assert step == 1
+    _assert_bits(got["params"], want["params"])
+    _assert_bits(got["opt"].m, want["opt"].m)
+
+
 @pytest.mark.parametrize("package", ["reference", "port"])
 def test_save_in_flight_when_a_device_fails_is_lost(clients, package):
     """A reference-side fault the port keeps (ROADMAP Queue 3): when a

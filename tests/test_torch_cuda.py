@@ -8,7 +8,11 @@ path's stream cipher and Fletcher checksum (bit-exact with their plain
 versions, the inline crypto and the engine checksum), and the moe, vlm
 and encdec families: the flash forward at head_dim 128 in the GQA groups
 of dbrx and llama-3.2-vision, `moe_ffn` with drops and the float8
-dispatch cast on the card against the CPU port; and the multi-device
+dispatch cast on the card against the CPU port; the scans' backward at
+their train shapes (`rglru_scan` reversed at (4, 256, 2560), the
+`wkv6_backward` op at (4, 256, 32, 64) against the same op on the CPU)
+and the captured train steps of the tiny dense, hybrid and ssm models,
+bit for bit their eager steps; and the multi-device
 layer on a one-rank NCCL group: the mesh's train step and `moe_ffn` bit
 for bit their one-device counterparts.
 Every test here needs a card and skips
@@ -554,6 +558,30 @@ def test_rglru_backward_runs_the_kernel_in_reverse(cuda_device):
         torch.testing.assert_close(x.grad, y.grad, atol=1e-4, rtol=1e-4)
 
 
+def test_rglru_backward_at_the_train_shape(cuda_device):
+    """The backward at one microbatch of recurrentgemma-2b's train step
+    (4, 256, 2560), a near 1 as the model's gates give it, without h0 as
+    the model calls it: gradients of sum(h * w) for a random w through
+    the kernel's reverse mode against autograd through the plain version,
+    to 1e-4."""
+    gen = torch.Generator(device=cuda_device).manual_seed(17)
+    B, T, R = 4, 256, 2560
+    a = (1 - 0.1 * torch.rand(B, T, R, generator=gen, device=cuda_device)
+         ).requires_grad_()
+    b = torch.randn(B, T, R, generator=gen, device=cuda_device
+                    ).requires_grad_()
+    w = torch.randn(B, T, R, generator=gen, device=cuda_device)
+    ref_a, ref_b = (x.detach().clone().requires_grad_() for x in (a, b))
+    before = rops.launches()
+    (rops.rglru_scan(a, b) * w).sum().backward()
+    after = rops.launches()
+    assert (after["fwd"] - before["fwd"], after["bwd"] - before["bwd"]) == (
+        1, 1)
+    (rref.rglru_scan_ref(ref_a, ref_b) * w).sum().backward()
+    for x, y in ((a, ref_a), (b, ref_b)):
+        torch.testing.assert_close(x.grad, y.grad, atol=1e-4, rtol=1e-4)
+
+
 def _wkv_inputs(gen, B, T, H, hd, dev):
     def n(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
@@ -635,6 +663,34 @@ def test_wkv6_kernel_mixed_strong_decay_over_many_chunks(cuda_device):
     assert torch.isfinite(y).all() and torch.isfinite(s).all()
     torch.testing.assert_close(y, yr, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(s, sr, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("decay", ["model", "strong"])
+def test_wkv6_backward_op_on_card_is_the_cpu_op(cuda_device, decay):
+    """The backward op `repro_torch::wkv6_backward` (autograd through the
+    sequential recurrence) at one microbatch of rwkv6-1.6b's train step
+    (4, 256, 32, 64), without s0 as the model calls it, on the card
+    against the same op on the CPU, to 1e-4: under the model's decays
+    (w = exp(-exp(x))) and under strong decay (half the channels at w =
+    1e-12, half near 1)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(23)
+    B, T, H, hd = 4, 256, 32, 64
+    r, k, v, w, u, _ = _wkv_inputs(gen, B, T, H, hd, cuda_device)
+    if decay == "strong":
+        near = 0.9 + 0.1 * torch.rand(B, T, H, hd, generator=gen,
+                                      device=cuda_device)
+        w = torch.where(torch.arange(hd, device=cuda_device) < hd // 2,
+                        torch.full_like(near, 1e-12), near)
+    dy = torch.randn(B, T, H, hd, generator=gen, device=cuda_device)
+    ds = torch.randn(B, H, hd, hd, generator=gen, device=cuda_device)
+    args = (r, k, v, w, u, None, dy, ds)
+    got = torch.ops.repro_torch.wkv6_backward(*args)
+    want = torch.ops.repro_torch.wkv6_backward(
+        *(None if x is None else x.cpu() for x in args))
+    assert len(got) == len(want) == 5
+    for g, x in zip(got, want):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g.cpu(), x, atol=1e-4, rtol=1e-4)
 
 
 def test_wkv6_kernel_takes_inputs_that_start_off_16_bytes(cuda_device):
@@ -1053,17 +1109,31 @@ def test_jit_decode_step_replay_equals_eager(cuda_device, name, over):
     assert dec.capture_s > 0
 
 
-def test_jit_train_step_replay_equals_eager(cuda_device):
-    """Three steps of jit_train_step (bf16, the flash forward and backward
-    kernels, 2 microbatches) against make_train_step from the same state,
-    bit for bit: loss, grad norm, params, m and v."""
+TRAIN_ARCHS = [  # tiny config, its overrides: the train paths' kernels
+    ("granite-3-2b", dict(head_dim=64, attn_impl="flash")),
+    ("recurrentgemma-2b", dict(attn_impl="flash")),
+    ("rwkv6-1.6b", dict(attn_impl="flash")),
+]
+
+
+def _all_launches() -> tuple:
+    return fops.launches(), rops.launches(), wops.launches()
+
+
+@pytest.mark.parametrize("name,over", TRAIN_ARCHS)
+def test_jit_train_step_replay_equals_eager(cuda_device, name, over):
+    """Three steps of jit_train_step (bf16, 2 microbatches, remat: the
+    flash forward and backward kernels for granite, rglru_scan forward
+    and reverse for the hybrid, wkv6 and the wkv6_backward op for the
+    ssm) against make_train_step from the same state, bit for bit: loss,
+    grad norm, params, m and v. A replay makes no wrapper launch."""
     from repro_torch.common.config import ShapeConfig, TrainConfig
     from repro_torch.models.params import tree_leaves
     from repro_torch.train.optimizer import init_adam
     from repro_torch.train.trainer import (jit_train_step, make_train_step,
                                            map_tree)
-    api, params, mctx = _tiny_on_card("granite-3-2b", dict(
-        head_dim=64, attn_impl="flash"), cuda_device)
+    api, params, mctx = _tiny_on_card(name, over, cuda_device)
+    assert api.cfg.remat
     tcfg = TrainConfig(lr=1e-2, total_steps=10, warmup_steps=2,
                        num_microbatches=2)
     step = jit_train_step(api, tcfg, mctx, ShapeConfig("t", 64, 4, "train"))
@@ -1076,10 +1146,10 @@ def test_jit_train_step_replay_equals_eager(cuda_device):
     for i in range(3):
         toks = gen.integers(0, api.cfg.vocab, (4, 65), dtype=np.int32)
         batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
-        before = fops.launches()["bwd"]
+        before = _all_launches()
         p_c, s_c, m_c = step(p_c, s_c, batch)
         if i:
-            assert fops.launches()["bwd"] == before
+            assert _all_launches() == before
         p_e, s_e, m_e = eager(p_e, s_e, {k: torch.from_numpy(v).to(
             cuda_device) for k, v in batch.items()})
         for key in ("loss", "grad_norm", "lr"):

@@ -4,14 +4,17 @@ restore, following `launch/train.py main` step by step.
 
 Both runs start from the reference's params; the reference's flash path
 runs its Pallas kernels in interpret mode, the port's its plain versions.
-The batches must be equal bit for bit, the per-step losses within 1e-5
-relative (sums in another order), and each package's restored state equal
-to what it saved bit for bit. The params themselves are compared step by
+One case each for tiny granite-3-2b, recurrentgemma-2b (hybrid) and
+rwkv6-1.6b (ssm). The batches must be equal bit for bit, the per-step
+losses within LOSS_TOL relative (sums in another order, compounded by the
+free-running chain), and each package's restored state equal to what it
+saved bit for bit. The params themselves are compared step by
 step in tests/test_torch_train.py, where each step starts from the same
 state: run freely, AdamW's elements with near-zero gradients drift apart
 and compound.
 """
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -43,12 +46,26 @@ from repro_torch.train.optimizer import init_adam
 from repro_torch.train.trainer import make_train_step
 
 STEPS, GB, SEQ, DRILL = 3, 8, 32, 1
+ARCHS = {  # tiny config -> its overrides; the hybrid and ssm families
+    # reach their scan kernels' plain versions under "flash"
+    "granite-3-2b": dict(head_dim=64, attn_impl="flash"),
+    "recurrentgemma-2b": dict(attn_impl="flash"),
+    "rwkv6-1.6b": dict(attn_impl="flash"),
+}
+# the per-step losses of the free-running chains: 1e-5 for granite, whose
+# step 2 and 3 part by 2.3e-7 and 3.6e-6; the hybrid's and ssm's at their
+# families' loss tolerance (tests/test_torch_recurrent.py,
+# test_torch_rwkv.py), since the hybrid's part by 9.9e-7 and 1.2e-5, the
+# same tenfold growth a step (each step from the reference's state they
+# agree to 1e-6: tests/test_torch_train_families.py)
+LOSS_TOL = {"granite-3-2b": 1e-5, "recurrentgemma-2b": 1e-4,
+            "rwkv6-1.6b": 1e-4}
 
 
-def test_store_loader_steps_checkpoint_restore_match_reference():
-    ref_cfg = ref_tiny_config("granite-3-2b").replace(head_dim=64,
-                                                      attn_impl="flash")
-    cfg = tiny_config("granite-3-2b").replace(head_dim=64, attn_impl="flash")
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_store_loader_steps_checkpoint_restore_match_reference(arch):
+    ref_cfg = ref_tiny_config(arch).replace(**ARCHS[arch])
+    cfg = tiny_config(arch).replace(**ARCHS[arch])
     need = STEPS * GB * (SEQ + 1) + SEQ + 1
     tokens = synth_tokens(cfg.vocab, need, 0)
     np.testing.assert_array_equal(tokens,
@@ -88,7 +105,8 @@ def test_store_loader_steps_checkpoint_restore_match_reference():
             rp, ro, rm = ref_step(rp, ro, rb)
             p, o, m = step(p, o, {k: torch.from_numpy(v)
                                   for k, v in b.items()})
-            assert abs(float(m["loss"]) / float(rm["loss"]) - 1) < 1e-5, i
+            assert abs(float(m["loss"]) / float(rm["loss"]) - 1) < LOSS_TOL[
+                arch], i
         ref_mgr.save(STEPS, {"params": rp, "opt": ro})
         mgr.save(STEPS, {"params": p, "opt": o})
         ref_mgr.wait()
