@@ -29,14 +29,16 @@ result):
                groups of 6 and 8), then times the kernel, its plain
                version and PyTorch's scaled_dot_product_attention (the
                library yardstick, used nowhere in the port) at the serve
-               shape and at dbrx's and llama-3.2-vision's prefill shapes
-               (head_dim 128, 48 and 64 heads over 8); holds
+               shape, at dbrx's and llama-3.2-vision's prefill shapes
+               (head_dim 128, 48 and 64 heads over 8) and at phase 12(c)'s
+               (2 x 4096 tokens, one head of 256); holds
                flash_attention_bwd's dq, dk and dv against its plain
                version in both types (GQA, MQA, window, ragged,
                head_dim 128 and 256, padded keys, the tile edges, a
                group of 32, the train and serve shapes), then
                times it, its plain version and the backward of
-               scaled_dot_product_attention at the serve and train shapes;
+               scaled_dot_product_attention at the serve and train shapes
+               and at phase 12(c)'s;
      scans     holds rglru_scan against its plain version (the reference's
                shapes, T = 1, ragged R, the prefill shape (4, 1024, 2560),
                T = 63, 65 and 4096 at R = 2567, a near 1 over 4096 steps,
@@ -199,7 +201,19 @@ result):
                copies counted in the traces (a one-rank NCCL collective is
                a device-to-device copy, not a kernel). GPipe needs two
                stages: the phase says so and has no check of it. Then
-               13(b) below;
+               13(b) below; (c) rank 0 of the production 16 x 16 mesh
+               over torch's fake process group (whose collectives move
+               nothing, so values are not the model's: gloo ranks hold
+               them on the CPU) with real tensors on the card: gemma-7b's
+               eager train step at train_4k, 8 microbatches of 2 x 4096
+               tokens, params, moments and inputs made as this rank's
+               shards (heads, mlp columns and vocab over 16 model ranks):
+               max_memory_allocated (under 80 GB) beside the dry-run's
+               peak for the cell (a process of its own, started before
+               the serve phase), the step's seconds, its flash launches,
+               every call at head_dim 256 with one head, and one forward
+               and one backward call at that shape held against their
+               plain versions;
      families  training the hybrid, ssm and encdec families, in the
                train phase's style and traffic: (a) recurrentgemma-2b and
                rwkv6-1.6b whole at full width (attn_impl="flash", float32
@@ -260,10 +274,10 @@ result):
 Each kernel's launch counts are zeroed just before the path that drives it
 (rs_matmul: the ec phase; stream_cipher and fletcher: the step on the
 placed stream; flash_attention_fwd: each of the granite, dbrx and VLM
-serve phases and the mesh phase's step, and its launches are their sum;
-rglru_scan and wkv6: their serve phases and their train paths in the
-families phase; flash_attention_bwd: the train phase and the mesh
-phase's step) and read just after it. A wrapper counts the launches it makes itself; a call captured into a
+serve phases and the mesh phase's steps (a) and (c), and its launches are
+their sum; rglru_scan and wkv6: their serve phases and their train paths
+in the families phase; flash_attention_bwd: the train phase and the mesh
+phase's steps) and read just after it. A wrapper counts the launches it makes itself; a call captured into a
 CUDA graph launches nothing, and each replay of the graph launches what
 the capture recorded, so on the compiled paths a kernel's launches are
 the wrapper's count plus its kernels in each graph (from traced
@@ -806,6 +820,10 @@ FLASH_CASES = [  # B, T, S, H, KH, D, causal, window, softcap, seq_k
     (4, 1024, 1024, 64, 8, 128, True, None, None, None),  # the VLM's
 ]
 SERVE_SHAPE = (4, 1024, 32, 8, 64)                  # B, T=S, H, KH, D
+# phase 12(c)'s attention: a microbatch of gemma-7b's train_4k step (2 x
+# 4096 tokens) on one rank of the 16 x 16 mesh, its 16 heads over 16 model
+# ranks: one head and one kv head of 256
+RANK_SHAPE = (2, 4096, 1, 1, 256)
 D128_SHAPES = {  # arch -> its prefill wave's attention: B, T=S, H, KH, D
     "dbrx-132b": (4, 1024, 48, 8, 128),
     "llama-3.2-vision-90b": (4, 1024, 64, 8, 128),
@@ -877,6 +895,7 @@ def flash_phase(seed: int) -> dict:
     times = _flash_times(SERVE_SHAPE, gen)
     d128 = {arch: _flash_times(shape, gen)
             for arch, shape in D128_SHAPES.items()}
+    d256 = _flash_times(RANK_SHAPE, gen)
     # the launch floor: one CTA (B = H = KH = 1, T = S = 16, bf16)
     q1, k1, v1 = (torch.randn(1, FLASH_FLOOR_T, 1, 64, generator=gen,
                               device="cuda").bfloat16() for _ in range(3))
@@ -889,6 +908,7 @@ def flash_phase(seed: int) -> dict:
           f"the device, {floor_call_ms:.6f} ms a call")
     return {"max_abs_err": max(worst.values()), "max_abs_err_by_dtype": worst,
             "max_abs_err_at_d128_prefill": at_prefill, **times, "d128": d128,
+            "d256": d256,
             "floor_ms": floor_ms, "floor_call_ms": floor_call_ms}
 
 
@@ -1030,13 +1050,15 @@ def flash_bwd_phase(seed: int) -> dict:
     print(f"flash_attention_bwd within tolerance of its plain version in "
           f"{n_checks} checks of dq, dk and dv; max abs error {worst}")
 
-    # times at the train and serve shapes: `ms` the two kernels' device
+    # times at the train and serve shapes and phase 12(c)'s: `ms` the two
+    # kernels' device
     # time a call (profiler), `call_ms` the backward as autograd runs it
     # (delta, then both kernels; CUDA events), `library_ms` the backward of
     # scaled_dot_product_attention alone, given dout
     shapes = {}
     for shape_name, (B, T, H, KH, D) in (("train", TRAIN_SHAPE),
-                                         ("serve", SERVE_SHAPE)):
+                                         ("serve", SERVE_SHAPE),
+                                         ("rank", RANK_SHAPE)):
         q, k, v, dout = inputs(B, T, H, KH, D, torch.bfloat16)
         scale = D ** -0.5
         out, lse = ops.flash_attention(q, k, v, return_lse=True)
@@ -3913,7 +3935,7 @@ def mesh_moe_check(seed: int, mctx) -> dict:
               f"tokens, {wire} wire: mesh eager and replay bit for bit the "
               f"meshless call; device-to-device copies a call: meshless "
               f"{counts['meshless'][0]}, mesh {counts['mesh'][0]} (the "
-              f"one-rank group's all_to_all_single x 3 and all-gather), "
+              f"one-rank group's all_to_all_single x 3), "
               f"replay {counts['replay'][0]}; NCCL kernels: "
               f"{counts['mesh'][1] or 'none (a one-rank NCCL collective is a device copy)'}"
               f"; ms a call: meshless {ms['meshless']:.3f}, mesh "
@@ -4043,6 +4065,140 @@ def mesh_phase(seed: int, times: dict) -> dict:
           "card has no check of it: tests/test_torch_multidevice.py holds it "
           "against the sequential forward on gloo ranks")
     return {"train": train, "moe": moe}
+
+
+# -- phase 12(c): one rank of the production 16 x 16 mesh at full width --------
+RANK_ARCH, RANK_CELL = "gemma-7b", "train_4k"
+RANK_DRYRUN = """
+import json, sys
+from repro_torch.launch import dryrun
+print(json.dumps(dryrun.run_cell(sys.argv[1], sys.argv[2])))
+"""
+
+
+def rank_phase(seed: int, fake_dryrun) -> dict:
+    """12(c): rank 0 of the 16 x 16 mesh over torch's fake process group
+    (the dry-run's "fake" backend: its collectives move nothing, so the
+    values are not the model's, and this phase measures memory and time
+    only; tests/test_torch_tensor_parallel.py holds the values on gloo
+    ranks), with real tensors on the card: gemma-7b's eager train step at
+    train_4k (8 microbatches of 2 x 4096 tokens), params, moments and
+    inputs made as this rank's shards. max_memory_allocated beside the
+    dry-run's peak for the cell, the step's seconds, the flash launches
+    (every call at RANK_SHAPE, head_dim 256), and one forward and one
+    backward call at that shape held against their plain versions."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.common.config import SHAPE_BY_NAME, TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import production_mesh_shape
+    from repro_torch.models.api import ModelAPI, shardings_for
+    from repro_torch.models.context import MeshCtx, make_rules
+    from repro_torch.models.params import (init_params, sharded_zeros,
+                                           tree_map, zero1_pspecs)
+    from repro_torch.train.optimizer import AdamState
+    from repro_torch.train.trainer import jit_train_step, map_tree, placed
+
+    cfg = get_config(RANK_ARCH).replace(attn_impl="flash")
+    shape = SHAPE_BY_NAME[RANK_CELL]
+    ms = production_mesh_shape()
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    mesh = dryrun.fake_mesh(ms.shape, ms.axis_names)
+    try:
+        dev = torch.device("cuda", torch.cuda.current_device())
+        mctx = MeshCtx(device=dev, mesh=mesh, rules=make_rules(cfg))
+        api = ModelAPI(cfg)
+        defs = api.param_defs()
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        params = init_params(defs, gen, getattr(torch, cfg.param_dtype),
+                             mesh=mesh, rules=mctx.rules)
+        z = zero1_pspecs(defs, mesh, mctx.rules)
+        moments = [tree_map(lambda d, s: sharded_zeros(
+            d.shape, torch.float32, dev, mesh, s), defs, z) for _ in "mv"]
+        opt = AdamState(torch.zeros((), dtype=torch.int32, device=dev),
+                        *moments)
+        specs = api.input_specs(shape)
+        fitted = shardings_for(mesh, specs, api.input_pspecs(mctx, shape))
+        batch = map_tree(lambda c, s: sharded_zeros(c.shape, c.dtype, dev,
+                                                    mesh, s), specs, fitted)
+        for t in batch.values():
+            t.to_local().random_(0, cfg.vocab, generator=gen)
+        nmb = dryrun.TRAIN_MICROBATCHES[RANK_ARCH]
+        step = jit_train_step(api, TrainConfig(num_microbatches=nmb), mctx,
+                              shape)
+        args = placed(step, params, opt, batch)
+        state_gb = (torch.cuda.memory_allocated() - before) / 1e9
+        shapes = set()
+        kernel_path = ops.flash_attention
+
+        def recording(q, k, v, **kw):
+            shapes.add((tuple(q.shape), tuple(k.shape)))
+            return kernel_path(q, k, v, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        ops.flash_attention = recording      # layers.attention looks it up
+        try:
+            t0 = time.perf_counter()
+            out = step.step.trace(*args)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+        finally:
+            ops.flash_attention = kernel_path
+        launched = ops.launches()
+        peak = torch.cuda.max_memory_allocated() - before
+        loss = float(out[2]["loss"])
+        del out, args, params, opt, moments, batch, step
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    B, T, H, KH, D = RANK_SHAPE
+    want = {((B, T, H, D), (B, T, KH, D))}
+    check(shapes == want, f"12(c): flash calls at {shapes}, not {want}")
+    check(launched["fwd"] > 0 and launched["bwd"] > 0,
+          f"12(c): the step launched no flash kernel: {launched}")
+    q, k, v, dout = (torch.randn(B, T, h, D, generator=gen, device="cuda"
+                                 ).bfloat16() for h in (H, KH, KH, H))
+    o, lse = ops.flash_attention(q, k, v, return_lse=True)
+    fwd_err, ok = in_tolerance(o, ref.attention_ref(q, k, v),
+                               FLASH_TOL["bfloat16"])
+    check(ok, f"12(c): flash forward at {RANK_SHAPE} off its plain version "
+          f"by {fwd_err}")
+    got = ops.flash_attention_backward(q, k, v, o, lse, dout, scale=D ** -0.5)
+    want_g = ref.flash_attention_bwd_ref(q, k, v, o, lse, dout,
+                                         scale=D ** -0.5, causal=True,
+                                         window=None, seq_k=T)
+    bwd_err = 0.0
+    for g, w, name in zip(got, want_g, ("dq", "dk", "dv")):
+        err, ok = in_tolerance(g, w, BWD_TOL["bfloat16"])
+        check(ok, f"12(c): flash backward {name} at {RANK_SHAPE} off its "
+              f"plain version by {err}")
+        bwd_err = max(bwd_err, err)
+    fake = _dryrun_result(fake_dryrun)
+    dry_gb = fake["memory"]["peak_memory_in_bytes"] / 1e9
+    peak_gb = peak / 1e9
+    check(peak_gb < 80, f"12(c): {peak_gb} GB past one card")
+    print(f"[rank] (c) {RANK_ARCH} x {RANK_CELL}, rank 0 of the "
+          f"{ms.shape[0]} x {ms.shape[1]} mesh over the fake process group, "
+          f"{nmb} microbatches of {shape.global_batch // ms.shape[0] // nmb}"
+          f" x {shape.seq_len} tokens, eager: step {step_s:.3f} s; "
+          f"max_memory_allocated {peak_gb:.3f} GB (params, moments and "
+          f"inputs {state_gb:.3f} GB) vs the dry-run's peak {dry_gb:.3f} GB "
+          f"(ratio {dry_gb / peak_gb:.4f}); flash launches {launched} at "
+          f"{RANK_SHAPE} (B, T=S, H, KH, D); one forward and one backward "
+          f"call there vs their plain versions: {fwd_err:.6f}, "
+          f"{bwd_err:.6f}; loss {loss} (fake collectives: not the model's)")
+    return {"arch": RANK_ARCH, "cell": RANK_CELL, "step_s": step_s,
+            "max_memory_allocated_gb": peak_gb, "state_gb": state_gb,
+            "dryrun_peak_gb": dry_gb, "dryrun_trace_s": fake["trace_s"],
+            "dryrun_over_card": dry_gb / peak_gb,
+            "flash_launches": launched, "flash_fwd_err": fwd_err,
+            "flash_bwd_err": bwd_err, "microbatches": nmb}
 
 
 # -- phase 13: the dry-run and the roofline -----------------------------------
@@ -4262,6 +4418,7 @@ def main(argv=None) -> int:
     if args.stream_mib != 1024:
         print(f"stream cut to {args.stream_mib} MiB from 1024 MiB")
     times: dict = {}
+    rank_dryrun = None
     try:
         t0 = time.perf_counter()
         card = card_line()
@@ -4331,6 +4488,9 @@ def main(argv=None) -> int:
             dpu.close()
         times["dpu_s"] = time.perf_counter() - t0
 
+        # 12(c)'s dry-run (minutes of one CPU core), in a process of its
+        # own from here on, after the storage phases it would slow
+        rank_dryrun = _dryrun_process(RANK_DRYRUN, RANK_ARCH, RANK_CELL)
         t0 = time.perf_counter()
         serve = serve_phase(args.seed, times)
         times["serve_phase_s"] = time.perf_counter() - t0
@@ -4359,6 +4519,9 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         mesh = mesh_phase(args.seed, times)
         times["mesh_phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rank = rank_phase(args.seed, rank_dryrun)
+        times["rank_phase_s"] = time.perf_counter() - t0
 
         # after the mesh phase: run before it, they left the profiler
         # losing records in the mesh phase's single traces (on an NVIDIA
@@ -4382,6 +4545,10 @@ def main(argv=None) -> int:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
+    finally:
+        if rank_dryrun is not None:
+            rank_dryrun.kill()
+            rank_dryrun.wait()
 
     enc = kern["legs"]["encode"]
     total = sum(launches[leg] for leg in ("encode", "delta", "decode"))
@@ -4396,15 +4563,19 @@ def main(argv=None) -> int:
     for arch, stats in families.items():
         print(f"train {arch}:", json.dumps(stats))
     print("mesh:", json.dumps(mesh))
+    print("rank:", json.dumps(rank))
     print("dryrun:", json.dumps(dry))
     # flash_attention_fwd's serve paths, each counted from 0 just before it
     flash_paths = {"granite-3-2b": serve["flash_launches"],
                    "dbrx-132b": moe_serve["dbrx-132b"]["flash_launches"],
                    VLM: vlm_serve["flash_launches"],
                    "dense-100m mesh train": mesh["train"]["flash_launches"][
-                       "fwd"]}
+                       "fwd"],
+                   f"{RANK_ARCH} rank train": rank["flash_launches"]["fwd"]}
     for arch, leg in flash["d128"].items():
         leg["launches"] = flash_paths[arch]
+    flash["d256"]["launches"] = rank["flash_launches"]["fwd"]
+    flash_bwd["shapes"]["rank"]["launches"] = rank["flash_launches"]["bwd"]
     bwd = flash_bwd["shapes"]["train"]
     rgp, wkv = scans["rglru"]["legs"]["prefill"], scans["wkv"]
     # the scans' serve and train paths, each counted from 0 just before it
@@ -4424,6 +4595,7 @@ def main(argv=None) -> int:
         "name": "flash_attention_fwd", "route": "cuda", "source": FK.SOURCE,
         "replaces": FK.REPLACES, "launches": sum(flash_paths.values()),
         "launches_by_path": flash_paths, "d128": flash["d128"],
+        "d256": flash["d256"],
         "max_abs_err": flash["max_abs_err"], "ms": flash["ms"],
         "call_ms": flash["call_ms"], "plain_ms": flash["plain_ms"],
         "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
@@ -4435,10 +4607,12 @@ def main(argv=None) -> int:
         "name": "flash_attention_bwd", "route": "cuda", "source": FKB.SOURCE,
         "replaces": FKB.REPLACES,
         "launches": (train["flash_launches"]["bwd"]
-                     + mesh["train"]["flash_launches"]["bwd"]),
+                     + mesh["train"]["flash_launches"]["bwd"]
+                     + rank["flash_launches"]["bwd"]),
         "launches_by_path": {
             "train": train["flash_launches"]["bwd"],
-            "mesh train": mesh["train"]["flash_launches"]["bwd"]},
+            "mesh train": mesh["train"]["flash_launches"]["bwd"],
+            f"{RANK_ARCH} rank train": rank["flash_launches"]["bwd"]},
         "max_abs_err": flash_bwd["max_abs_err"], "ms": bwd["ms"],
         "call_ms": bwd["call_ms"], "plain_ms": bwd["plain_ms"],
         "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],

@@ -3,9 +3,12 @@
 `python -m repro_torch.launch.dryrun --all`) as one markdown table: a
 row per arch and mesh (16 x 16, 2 x 16 x 16), a column per shape holding
 the per-rank peak GB, FLOPs, collective bytes and trace seconds, then
-every failed cell with its error.
+every failed cell with its error. With `--before DIR` (another tree's
+`results/dryrun_torch/`, e.g. a parent commit unpacked by `git archive`
+and run the same way), one row per arch on 16 x 16 instead: the peak GB
+and FLOPs at train_4k, prefill_32k and decode_32k, before -> after.
 
-    PYTHONPATH=src python3 scripts/dryrun_table.py [--variant V]
+    PYTHONPATH=src python3 scripts/dryrun_table.py [--variant V] [--before DIR]
 """
 from __future__ import annotations
 
@@ -31,6 +34,35 @@ def cell(rec) -> str:
             f"{rec['trace_s']}")
 
 
+COMPARED = ("train_4k", "prefill_32k", "decode_32k")
+
+
+def _peak_flops(rec) -> str:
+    if rec is None or not rec.get("ok") or "skipped" in rec:
+        return "not run" if rec is None else ("FAILED" if not rec.get("ok")
+                                               else "skipped")
+    return (f"{rec['memory']['peak_memory_in_bytes'] / 1e9:,.1f} GB, "
+            f"{rec['flops_per_device']:.3e}")
+
+
+def before_after(before: Path, archs, cell_path, variant: str) -> int:
+    """Each arch's 16 x 16 cells of COMPARED: peak GB and FLOPs a rank in
+    `before`'s records -> in this tree's."""
+    print("| arch | " + " | ".join(
+        f"{s}: peak, FLOP a rank, before -> after" for s in COMPARED) + " |")
+    print("| --- | " + " | ".join("---" for _ in COMPARED) + " |")
+    for arch in archs:
+        row = []
+        for shape in COMPARED:
+            path = cell_path(arch, shape, False, variant)
+            old = before / path.name
+            recs = [json.loads(p.read_text()) if p.exists() else None
+                    for p in (old, path)]
+            row.append(" -> ".join(_peak_flops(r) for r in recs))
+        print(f"| {arch} | " + " | ".join(row) + " |")
+    return 0
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.common.config import SHAPES
@@ -39,7 +71,10 @@ def main() -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--variant", default="")
+    ap.add_argument("--before", type=Path, default=None)
     args = ap.parse_args()
+    if args.before is not None:
+        return before_after(args.before, ARCHS, cell_path, args.variant)
     print("| arch | mesh | " + " | ".join(
         f"{s.name}: peak GB, FLOP, collective B, trace s" for s in SHAPES)
         + " |")

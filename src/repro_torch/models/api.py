@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.common.config import ModelConfig, ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.context import MeshCtx
+from repro_torch.models.context import MeshCtx, gather_whole
 from repro_torch.models.params import fit_spec, spec
 from repro_torch.models.transformer import CacheSpec
 
@@ -63,15 +63,32 @@ class ModelAPI:
     def param_defs(self):
         return self._m.param_defs(self.cfg)
 
+    @property
+    def shards_compute(self) -> bool:
+        """Whether the family computes on its params' local shards on a
+        mesh (the dense and moe families); the others compute on whole
+        params, replicated along "model"."""
+        return self.cfg.family in ("dense", "moe")
+
+    def _params(self, params, mctx: MeshCtx):
+        """The params the family computes with, from each rank's local
+        shards: as they are for the dense and moe families; whole for the
+        others (`gather_whole`; the next slice of the port shards them)."""
+        if self.shards_compute:
+            return params
+        return gather_whole(params, self.param_defs(), mctx)
+
     def loss(self, params, batch, mctx: MeshCtx):
         batch = {k: self._tensor(v) for k, v in batch.items()}
-        return self._m.loss_fn(params, batch, self.cfg, mctx)
+        return self._m.loss_fn(self._params(params, mctx), batch, self.cfg,
+                               mctx)
 
     def prefill(self, params, inputs: Dict[str, Any], mctx: MeshCtx):
         """Prefill on `tokens`, with the vlm's `vision_embeds` (B, N,
         d_vision) or the encdec's encoder `frames` (B, F, d_model)."""
         cfg, fam = self.cfg, self.cfg.family
         tokens = self._tensor(inputs["tokens"])
+        params = self._params(params, mctx)
         if fam == "vlm":
             return self._m.prefill(params, tokens,
                                    self._tensor(inputs["vision_embeds"]),
@@ -84,7 +101,8 @@ class ModelAPI:
     def decode(self, params, inputs: Dict[str, Any], cache, mctx: MeshCtx):
         """One decode step; the cache (or state) is updated in place and
         returned."""
-        return self._m.decode_step(params, self._tensor(inputs["token"]),
+        return self._m.decode_step(self._params(params, mctx),
+                                   self._tensor(inputs["token"]),
                                    self._tensor(inputs["pos"]), cache,
                                    self.cfg, mctx)
 

@@ -1,5 +1,6 @@
 """MeshCtx: what a model needs to know about where it runs, the
-counterpart of `repro/models/context.py`.
+counterpart of `repro/models/context.py`, and the collectives its
+per-rank code calls.
 
 Without a mesh (`single_device_ctx`) the context holds only the device,
 and reads as the reference's 1 x 1 ("data", "model") mesh: `constraint`
@@ -8,10 +9,24 @@ emits no collective on a 1 x 1 mesh, and neither does this context.
 
 With a mesh (`make_mesh`, a torch `DeviceMesh` over an initialised
 process group) params, moments, batches and caches are DTensors placed by
-the rules' specs (`models/params.py`), `constraint` redistributes a
-DTensor to the placements of a spec, and the model code runs on each
-rank's local tensors: its batch shard, with the params gathered, and the
-reference's own shard_map regions (`moe_ffn`, `gpipe_forward`) as
+the rules' specs (`models/params.py`), and `constraint` redistributes a
+DTensor to the placements of a spec. The model code runs on each rank's
+local tensors: its batch shard, and the dense and moe families on their
+params' local shards, which is what XLA's SPMD partitioner makes of the
+reference's specs (the Megatron layout): heads, mlp columns, vocab and
+experts over "model", the fsdp dim over "data". The collectives between
+them are explicit, as autograd Functions on `MeshCtx.group`:
+
+    copy_to_model      identity forward, all-reduce over "model" backward
+    reduce_from_model  all-reduce over "model" forward, identity backward
+    gather_from_model  all-gather over "model" forward, its slice backward
+    scatter_to_model   its slice forward, all-gather over "model" backward
+    gather_fsdp        all-gather over "data" forward, reduce-scatter back
+
+Each returns its input untouched without a mesh or on a group of one
+rank, so the one-device path and a one-rank mesh run the same ops. The
+other families still compute on whole params (`gather_whole`), and the
+reference's own shard_map regions (`moe_ffn`, `gpipe_forward`) are
 explicit per-rank code over the mesh's groups. A mesh may also be a
 `MeshShape` (names and sizes only), on which the spec functions run but
 nothing can be placed.
@@ -29,8 +44,9 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.params import (DEFAULT_RULES, MeshShape, Spec,
-                                       _mesh_axes_size, fit_spec, mesh_shape,
-                                       placements, spec)
+                                       _mesh_axes_size, _names, fit_spec,
+                                       mesh_shape, param_pspecs, placements,
+                                       spec, tree_map)
 
 ONE_DEVICE = MeshShape(("data", "model"), (1, 1))
 
@@ -135,3 +151,161 @@ def mesh_ctx(cfg, mesh) -> MeshCtx:
     else:
         device = torch.device(mesh.device_type)
     return MeshCtx(device=device, mesh=mesh, rules=make_rules(cfg))
+
+
+# ---------------------------------------------------------------------------
+# Collectives of the per-rank model code (NCCL captures each of them in a
+# CUDA graph; the dry-run's recorder counts them as c10d ops)
+
+def _group(mctx: Optional[MeshCtx], axis: str):
+    """The process group along `axis`, or None without a mesh or where the
+    axis has one rank (no collective is needed there)."""
+    if mctx is None or mctx.device_mesh is None or mctx.size((axis,)) <= 1:
+        return None
+    return mctx.group(axis)
+
+
+def _all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' blocks of `group` along `dim`, in rank order."""
+    n = dist.get_world_size(group)
+    xm = x.movedim(dim, 0).contiguous()
+    out = xm.new_empty((n * xm.shape[0],) + tuple(xm.shape[1:]))
+    dist.all_gather_into_tensor(out, xm, group=group)
+    return out.movedim(0, dim)
+
+
+def _block_of(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block of `x` along `dim` (a view)."""
+    n = dist.get_world_size(group)
+    size = x.shape[dim] // n
+    return x.narrow(dim, dist.get_rank(group) * size, size)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block_of(g, ctx.dim, ctx.group), None, None
+
+
+class _ScatterToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _block_of(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.group), None, None
+
+
+class _GatherFSDP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _all_gather(w, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = dist.get_world_size(ctx.group)
+        gm = g.movedim(ctx.dim, 0).contiguous()
+        out = gm.new_empty((gm.shape[0] // n,) + tuple(gm.shape[1:]))
+        dist.reduce_scatter_tensor(out, gm, group=ctx.group)
+        return out.movedim(0, ctx.dim), None, None
+
+
+def copy_to_model(x: torch.Tensor, mctx: Optional[MeshCtx]) -> torch.Tensor:
+    """x as it is; its gradient summed over "model". Where a tensor
+    replicated along "model" feeds a rank's shard of the work (column
+    parallel products, its heads, its token slice), each rank's gradient
+    of it is a part of the whole."""
+    group = _group(mctx, "model")
+    return x if group is None else _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor,
+                      mctx: Optional[MeshCtx]) -> torch.Tensor:
+    """The sum of every "model" rank's x (a row-parallel product's partial
+    output); its gradient passes as it is, since it is the same on every
+    rank."""
+    group = _group(mctx, "model")
+    return x if group is None else _ReduceFromModel.apply(x, group)
+
+
+def gather_from_model(x: torch.Tensor, dim: int,
+                      mctx: Optional[MeshCtx]) -> torch.Tensor:
+    """The "model" ranks' blocks of x along `dim`, whole; the gradient of
+    the whole is the same on every rank, and each keeps its block of it."""
+    group = _group(mctx, "model")
+    return x if group is None else _GatherFromModel.apply(x, dim, group)
+
+
+def scatter_to_model(x: torch.Tensor, dim: int,
+                     mctx: Optional[MeshCtx]) -> torch.Tensor:
+    """This "model" rank's block of x along `dim` (x is the same on every
+    rank); the ranks' gradients of their blocks, gathered, are x's."""
+    group = _group(mctx, "model")
+    return x if group is None else _ScatterToModel.apply(x, dim, group)
+
+
+def gather_fsdp(w: torch.Tensor, dim: int, mctx: Optional[MeshCtx],
+                whole: Optional[int] = None) -> torch.Tensor:
+    """A param's fsdp dim `dim` gathered over "data" (the fsdp rule's
+    axis), where it is sharded: always with `whole` None, else where
+    w.shape[dim] is less than `whole`. The gradient is summed over "data"
+    and each rank keeps its block (a reduce-scatter), which is the data
+    ranks' sum a sharded leaf's gradient needs."""
+    group = _group(mctx, "data")
+    if group is None or (whole is not None and w.shape[dim] >= whole):
+        return w
+    return _GatherFSDP.apply(w, dim, group)
+
+
+def gather_whole(params, defs, mctx: Optional[MeshCtx]):
+    """Each param whole on every rank, from its local shard at its
+    `param_pspecs` spec: gathered over "model" (`gather_from_model`) and
+    over "data" (`gather_fsdp`) where the spec shards it. For the families
+    that still run their compute replicated along "model" (the hybrid,
+    ssm, vlm and encdec families), whose gradients are then the same on
+    every model rank."""
+    if mctx is None or mctx.device_mesh is None:
+        return params
+
+    def one(t, s):
+        for dim, axes in enumerate(s):
+            names = _names(axes)
+            if "model" in names:
+                t = gather_from_model(t, dim, mctx)
+            if "data" in names:
+                t = gather_fsdp(t, dim, mctx)
+        return t
+    return tree_map(one, params, param_pspecs(defs, mctx.mesh, mctx.rules))

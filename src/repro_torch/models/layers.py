@@ -3,7 +3,8 @@
 Plain PyTorch, the counterpart of `repro/models/layers.py`. The hot spot
 with a hand-written kernel is prefill self-attention (`attention` with
 impl="flash"); everything else is plain torch, as the reference leaves it
-to XLA.
+to XLA. `sharded_mlp` and `softmax_xent` with a MeshCtx are the
+tensor-parallel forms a rank runs on its shards (`models/context.py`).
 """
 from __future__ import annotations
 
@@ -11,7 +12,11 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from repro_torch.models.context import (MeshCtx, copy_to_model, gather_fsdp,
+                                        reduce_from_model)
 
 
 # ---------------------------------------------------------------------------
@@ -179,16 +184,74 @@ def mlp(x: torch.Tensor, p: dict, act: str) -> torch.Tensor:
     return h @ p["w_out"]
 
 
+# the dim of each MLP weight that the "fsdp" rule shards (d_model's)
+_FSDP_DIM = {"w_gate": 0, "w_up": 0, "w_in": 0, "w_down": 1, "w_out": 1}
+
+
+def sharded_mlp(x: torch.Tensor, p: dict, act: str, d_ff: int,
+                mctx: Optional[MeshCtx]) -> torch.Tensor:
+    """`mlp` on one layer's local MLP params, cast to x's dtype: the fsdp
+    dim gathered over "data" where it is sharded; where the hidden
+    columns (`d_ff` whole) are over "model", column-parallel in and
+    row-parallel out, the partial outputs summed over "model"."""
+    cdt = x.dtype
+    w = {k: gather_fsdp(v, _FSDP_DIM[k], mctx, x.shape[-1]).to(cdt)
+         for k, v in p.items()}
+    cols = (w["w_gate"] if "w_gate" in w else w["w_in"]).shape[-1]
+    if cols < d_ff:
+        return reduce_from_model(mlp(copy_to_model(x, mctx), w, act), mctx)
+    return mlp(x, w, act)
+
+
 # ---------------------------------------------------------------------------
 # Loss
 
+class _VocabParallelNLL(torch.autograd.Function):
+    """-log softmax(logits)[label] from each "model" rank's block of the
+    vocab: the max, the sum of exps and the label's logit all-reduced over
+    `group`; the backward is softmax minus one-hot on the block."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, group):
+        lf = logits.float()
+        vl = lf.shape[-1]
+        m = lf.amax(dim=-1)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        e = torch.exp(lf - m[..., None])
+        s = e.sum(dim=-1)
+        dist.all_reduce(s, group=group)
+        t = labels.long() - dist.get_rank(group) * vl
+        inside = (t >= 0) & (t < vl)
+        t = torch.where(inside, t, 0)
+        ll = torch.where(inside, torch.gather(lf, -1, t[..., None])[..., 0],
+                         0.0)
+        dist.all_reduce(ll, group=group)
+        ctx.save_for_backward(e, s, t, inside)
+        ctx.dtype = logits.dtype
+        return torch.log(s) + m - ll
+
+    @staticmethod
+    def backward(ctx, g):
+        e, s, t, inside = ctx.saved_tensors
+        d = e / s[..., None]
+        d.scatter_add_(-1, t[..., None], -inside[..., None].to(d.dtype))
+        return (d * g[..., None]).to(ctx.dtype), None, None
+
+
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
-                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Stable mean cross-entropy. logits (..., V) any dtype; reduce in f32."""
-    lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    ll = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
-    nll = lse - ll
+                 mask: Optional[torch.Tensor] = None,
+                 mctx: Optional[MeshCtx] = None) -> torch.Tensor:
+    """Stable mean cross-entropy. logits (..., V) any dtype; reduce in f32.
+    With `mctx`, logits are this rank's block of the vocab along "model"
+    (vocab-parallel; the reference keeps its logits sharded there) and the
+    loss is the whole vocab's, the same on every model rank."""
+    if mctx is None:
+        lf = logits.float()
+        lse = torch.logsumexp(lf, dim=-1)
+        ll = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+        nll = lse - ll
+    else:
+        nll = _VocabParallelNLL.apply(logits, labels, mctx.group("model"))
     if mask is not None:
         mask = mask.float()
         return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)

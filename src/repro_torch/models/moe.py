@@ -19,12 +19,22 @@ routes token slice r of the block, sends each assignment to the rank
 holding its expert with `all_to_all_single` over the "model" group (the
 payload and the local expert ids), runs its e_per experts, sends the
 results back the same way and all-gathers the slices' outputs
-(`all_gather_into_tensor`). The payload keeps `moe.dispatch_dtype` on the
-wire both ways, moved as its bytes (an fp8 tensor viewed as uint8). This
-holds whatever ep is: on a one-rank group the exchanges are real
+(`context.gather_from_model`). The payload keeps `moe.dispatch_dtype` on
+the wire both ways, moved as its bytes (an fp8 tensor viewed as uint8).
+This holds whatever ep is: on a one-rank group the exchanges are real
 collectives. Both exchanges are differentiable (the transpose of an
-all-to-all is the reverse all-to-all; that of the all-gather sums every
-rank's gradient of this rank's slice).
+all-to-all is the reverse all-to-all); the gathered output's gradient is
+the same on every model rank (the model around it is replicated along
+"model"), so each keeps its slice of it, and the token slice's gradient
+is all-gathered back (`context.scatter_to_model`).
+
+The experts come as the layer's local shard (`experts` over "model", the
+fsdp dim over "data", gathered for this layer only); whole experts, as a
+caller without the train step's placement passes them, are sliced to
+rank r's. The router is replicated, and its gradient, each rank's part
+from its token slice, is summed over "model"; the shared experts run on
+every token of the block as the dense MLP does (`layers.sharded_mlp`:
+column- and row-parallel where their columns are over "model").
 
 Without a mesh (ep = 1) the exchanges are identities, but the payload is
 still rounded to the dispatch dtype and back, with the reference's
@@ -45,7 +55,8 @@ import torch.nn.functional as F
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.context import MeshCtx
+from repro_torch.models.context import (MeshCtx, copy_to_model, gather_fsdp,
+                                        gather_from_model, scatter_to_model)
 
 # float8_e4m3fn's largest finite value is 448; the next step up would be
 # 480, which is the format's NaN. Rounding to nearest even sends 464 (the
@@ -93,28 +104,6 @@ class _AllToAll(torch.autograd.Function):
         return _exchange(g, ctx.group), None
 
 
-class _AllGather(torch.autograd.Function):
-    """The ranks' (n, ...) blocks of `group` stacked in rank order along
-    dim 0; the gradient of a rank's block is the sum of every rank's
-    gradient of it (an all-to-all of the blocks and a sum, which every
-    backend has)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        n = dist.get_world_size(group)
-        out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
-        dist.all_gather_into_tensor(out, x.contiguous(), group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        n = dist.get_world_size(ctx.group)
-        blocks = _exchange(g.reshape((n, -1) + tuple(g.shape[1:])),
-                           ctx.group)
-        return blocks.sum(0), None
-
-
 def _expert_mlp(buf: torch.Tensor, we: Dict[str, torch.Tensor],
                 act: str) -> torch.Tensor:
     """buf (E_local, C, D) -> (E_local, C, D), one batched matmul per
@@ -149,11 +138,21 @@ def _scatter(n: int, slot: torch.Tensor, ok: torch.Tensor,
     return out.index_put((torch.where(ok, slot, n),), rows)[:n]
 
 
+def _local_experts(w: torch.Tensor, r: int, e_per: int, whole: int,
+                   mctx: MeshCtx) -> torch.Tensor:
+    """Rank r's e_per experts of one expert leaf (E or e_per, d_in,
+    d_out), their fsdp dim (d_in, `whole`) gathered over "data"."""
+    if w.shape[0] != e_per:
+        w = w[r * e_per:(r + 1) * e_per]
+    return gather_fsdp(w, 1, mctx, whole)
+
+
 def moe_ffn(x: torch.Tensor, p: Dict[str, Any], cfg: ModelConfig,
             mctx: MeshCtx) -> torch.Tensor:
-    """x (B, S, D) -> (B, S, D). p is one layer's MoE param slice, whole
-    (every expert); on a mesh x is this rank's block of the batch, and
-    model rank r runs experts [r * e_per, (r + 1) * e_per)."""
+    """x (B, S, D) -> (B, S, D). p is one layer's MoE param slice: on a
+    mesh its local shard (rank r's experts) or whole; x is this rank's
+    block of the batch, and model rank r runs experts [r * e_per, (r + 1)
+    * e_per)."""
     mc = cfg.moe
     mesh = None if mctx is None else mctx.device_mesh
     ep = 1 if mesh is None else mctx.tp_size()
@@ -173,9 +172,8 @@ def moe_ffn(x: torch.Tensor, p: Dict[str, Any], cfg: ModelConfig,
     cap2 = cap * ep if e_per == 1 else min(
         cap * ep, _round_up(int(math.ceil(cap * ep / e_per * 2.0)), 8))
     xt = x.reshape(T, D)
-    if T_pad != T:
-        xt = F.pad(xt, (0, 0, 0, T_pad - T))
-    xs = xt[r * Tl:(r + 1) * Tl]                                # (Tl, D)
+    xp = xt if T_pad == T else F.pad(xt, (0, 0, 0, T_pad - T))
+    xs = scatter_to_model(xp, 0, mctx)                         # (Tl, D)
 
     def wire(t: torch.Tensor) -> torch.Tensor:
         """t (ep, cap, ...) in the dispatch dtype, exchanged over the
@@ -185,7 +183,8 @@ def moe_ffn(x: torch.Tensor, p: Dict[str, Any], cfg: ModelConfig,
         return t.to(cdt)
 
     # --- routing (float32) ---
-    logits = xs.float() @ p["router"].float()                   # (Tl, E)
+    router = copy_to_model(p["router"], mctx)
+    logits = xs.float() @ router.float()                        # (Tl, E)
     probs = torch.softmax(logits, dim=-1)
     # lax.top_k takes the lower index first among equal values; a stable
     # descending sort does too, torch.topk does not
@@ -218,7 +217,9 @@ def moe_ffn(x: torch.Tensor, p: Dict[str, Any], cfg: ModelConfig,
     le_c = torch.where(valid2, rle, 0)
     buf = _scatter(e_per * cap2, le_c * cap2 + pos2, valid2,
                    rx).reshape(e_per, cap2, D)
-    we = {k: v[r * e_per:(r + 1) * e_per].to(cdt)
+    d_in = {"w_gate": D, "w_up": D, "w_in": D, "w_down": mc.d_ff_expert,
+            "w_out": mc.d_ff_expert}
+    we = {k: _local_experts(v, r, e_per, d_in[k], mctx).to(cdt)
           for k, v in p["experts"].items()}
     y_buf = _expert_mlp(buf, we, cfg.act)
 
@@ -230,9 +231,8 @@ def moe_ffn(x: torch.Tensor, p: Dict[str, Any], cfg: ModelConfig,
     ya = back[dest, pos_c] * keep[:, None].to(cdt)              # (Tl*K, D)
     out = torch.sum(ya.reshape(Tl, K, D) * gates[..., None].to(cdt), dim=1)
 
+    out = gather_from_model(out, 0, mctx)[:T]                   # (T, D)
     if "shared" in p:
-        out = out + L.mlp(xs, {k: v.to(cdt) for k, v in p["shared"].items()},
-                          cfg.act)
-    if mesh is not None:
-        out = _AllGather.apply(out, group)[:T]                  # (T, D)
+        out = out + L.sharded_mlp(xt, p["shared"], cfg.act,
+                                  mc.n_shared * mc.d_ff_expert, mctx)
     return out.reshape(B, S, D)

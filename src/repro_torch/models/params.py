@@ -74,12 +74,15 @@ def tree_map(fn, *trees: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def _init_leaf(d: ParamDef, gen: torch.Generator, dtype: torch.dtype,
-               device: torch.device) -> torch.Tensor:
+               device: torch.device, shape=None) -> torch.Tensor:
+    """A leaf drawn by `d`'s rule, at `shape` (a shard's; d.shape by
+    default) with d.shape's fan-in."""
+    shape = d.shape if shape is None else shape
     if d.init == "zeros":
-        return torch.zeros(d.shape, dtype=dtype, device=device)
+        return torch.zeros(shape, dtype=dtype, device=device)
     if d.init == "ones":
-        return torch.ones(d.shape, dtype=dtype, device=device)
-    x = torch.randn(d.shape, generator=gen, dtype=torch.float32,
+        return torch.ones(shape, dtype=dtype, device=device)
+    x = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=device)
     if d.init == "embed":
         return x.mul_(0.02).to(dtype)
@@ -91,10 +94,14 @@ def _init_leaf(d: ParamDef, gen: torch.Generator, dtype: torch.dtype,
 
 def init_params(defs: Dict[str, Any], generator: torch.Generator,
                 dtype: torch.dtype = torch.float32,
-                device: DeviceLike = None) -> Dict[str, Any]:
+                device: DeviceLike = None, mesh=None,
+                rules=None) -> Dict[str, Any]:
     """Materialise a ParamDef tree into tensors on `device` (the CUDA card
     unless the caller asks for the CPU), leaf by leaf in sorted key order
-    from `generator`, which must live on that device.
+    from `generator`, which must live on that device. On a DeviceMesh
+    each leaf is the DTensor at its `param_pspecs` spec of which this rank
+    draws only its shard (no rank holds a whole leaf; the shards of one
+    leaf are independent draws).
 
     The distributions are the reference's (fan-in normal, embed 0.02,
     ones, zeros), but the values are not: a torch.Generator does not give
@@ -102,13 +109,32 @@ def init_params(defs: Dict[str, Any], generator: torch.Generator,
     them with the reference and carry them across with
     `params_from_numpy`."""
     device = resolve_device(device)
+    specs = (None if mesh is None
+             else tree_leaves(param_pspecs(defs, mesh, rules)))
     out: Dict[str, Any] = {}
-    for path, d in _leaves(defs):
+    for i, (path, d) in enumerate(_leaves(defs)):
         node = out
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = _init_leaf(d, generator, dtype, device)
+        if mesh is None:
+            node[path[-1]] = _init_leaf(d, generator, dtype, device)
+            continue
+        pl = placements(specs[i], mesh)
+        node[path[-1]] = DTensor.from_local(
+            _init_leaf(d, generator, dtype, device,
+                       local_shape(d.shape, pl, mesh)), mesh, pl,
+            run_check=False)
     return out
+
+
+def sharded_zeros(shape: Sequence[int], dtype: torch.dtype, device, mesh,
+                  s: Optional[Spec]):
+    """Zeros of global `shape` as the DTensor at spec `s` (fitted) on
+    `mesh`, of which this rank allocates only its shard."""
+    pl = placements(fit_spec(shape, s, mesh), mesh)
+    return DTensor.from_local(torch.zeros(local_shape(shape, pl, mesh),
+                                          dtype=dtype, device=device),
+                              mesh, pl, run_check=False)
 
 
 def abstract(shape: Sequence[int], dtype: torch.dtype,
@@ -125,13 +151,27 @@ def abstract(shape: Sequence[int], dtype: torch.dtype,
         raise RuntimeError("abstract tensors are made under FakeTensorMode")
     if mesh is None:
         return torch.empty(tuple(shape), dtype=dtype, device=device)
-    pl = placements(fit_spec(shape, s, mesh), mesh)
+    return sharded_zeros(shape, dtype, device, mesh, s)
+
+
+def local_shape(shape: Sequence[int], pl, mesh) -> Tuple[int, ...]:
+    """The shape of one rank's shard of a tensor of `shape` at DTensor
+    placements `pl` on `mesh` (even splits)."""
     local = list(shape)
-    for size, p in zip(mesh.shape, pl):
+    for size, p in zip(mesh_shape(mesh).shape, pl):
         if p.is_shard():
             local[p.dim] //= size
-    return DTensor.from_local(torch.empty(local, dtype=dtype, device=device),
-                              mesh, pl, run_check=False)
+    return tuple(local)
+
+
+def local_params(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The params a rank computes with: each DTensor leaf's local shard
+    (its `param_pspecs` spec fitted to the mesh: heads, mlp columns,
+    vocab and experts along "model", the fsdp dim along "data"), as a
+    tensor of its own sharing the shard's storage (no copy), which the
+    train step differentiates; any other leaf as it is."""
+    return tree_map(lambda p: p.to_local().detach() if isinstance(p, DTensor)
+                    else p, params)
 
 
 def abstract_params(defs: Dict[str, Any], dtype: torch.dtype,

@@ -13,6 +13,26 @@ in the latent space. `loss_fn` is what the train step
 (`train/trainer.py`) differentiates; with `cfg.remat`, each layer runs
 under activation checkpointing while grad is enabled, as the reference
 wraps its scan body in `jax.checkpoint`.
+
+On a mesh each rank computes on its params' local shards
+(`models/params.py` `local_params`), as XLA partitions the reference's
+specs; whether a leaf is sharded is read off its local shape against the
+config's. Attention is column-parallel over the heads its spec shards
+(`w_q`, and `w_k`, `w_v` where the kv heads divide the model ranks; where
+they do not, every rank projects all kv heads and takes those its q heads
+use), `w_o` row-parallel, its partial outputs summed over "model"; where
+the heads do not divide, attention is replicated and nothing is summed.
+MLA shards `w_uq`, `w_uk`, `w_uv` and `w_o` over heads and keeps its
+latent projections whole. The MLP is column-, then row-parallel
+(`layers.sharded_mlp`). The embedding is vocab-parallel (each rank looks
+up the tokens of its vocab block, zeros the rest, and the ranks' rows
+are summed), the logits stay vocab-sharded into a vocab-parallel loss,
+and prefill and decode gather the last logits whole. Replicated weights
+whose gradient is each rank's part (qk-norms and kv projections shared by
+heads on several ranks) take it summed over "model" (`copy_to_model`).
+fsdp leaves are gathered over "data" inside the layer (inside the
+checkpointed block, so remat gathers them again), and a decode step
+writes and reads the local kv heads of its cache.
 """
 from __future__ import annotations
 
@@ -24,7 +44,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.context import MeshCtx
+from repro_torch.models.context import (MeshCtx, copy_to_model,
+                                        gather_fsdp, gather_from_model,
+                                        reduce_from_model)
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.params import pdef
 
@@ -134,26 +156,59 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(d, h * k).to(x.dtype)).unflatten(-1, (h, k))
 
 
-def _gqa(x, p, cfg: ModelConfig, positions, *, cache=None, pos=None,
-         window=None):
+def _kv_heads(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig, hl: int,
+              mctx: MeshCtx):
+    """k, v (B, S, KH, Dh) with every kv head, cut to those this rank's
+    `hl` q heads use: a slice where they form even groups, else one kv
+    head per q head."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    h0 = mctx.coordinate("model") * hl
+    idx = [(h0 + j) // g for j in range(hl)]
+    lo, n = idx[0], idx[-1] + 1 - idx[0]
+    if hl % n == 0 and idx == [lo + j // (hl // n) for j in range(hl)]:
+        return k[:, :, lo:lo + n], v[:, :, lo:lo + n]
+    # made on the device: a host copy would break a CUDA graph's capture
+    sel = torch.div(torch.arange(h0, h0 + hl, device=k.device), g,
+                    rounding_mode="floor")
+    return k.index_select(2, sel), v.index_select(2, sel)
+
+
+def _gqa(x, p, cfg: ModelConfig, positions, mctx: MeshCtx = None, *,
+         cache=None, pos=None, window=None):
     """x (B,T,D). Train/prefill when cache is None; decode otherwise.
 
     cache: dict(k=(B,S,KH,Dh), v=(B,S,KH,Dh)); pos: (B,) write positions.
     Decode writes k, v into the cache in place (the reference donates the
-    cache across decode steps). Returns (out, new_cache_or_None).
-    """
+    cache across decode steps). Returns (out, new_cache_or_None). On a
+    mesh p is the layer's local shard and the cache holds the kv heads
+    its spec gives this rank."""
     cdt = x.dtype
-    q = _proj(x, p["w_q"])
-    k = _proj(x, p["w_k"])
-    v = _proj(x, p["w_v"])
+    d = cfg.d_model
+    w_q, w_k, w_v = (gather_fsdp(p[k], 0, mctx, d)
+                     for k in ("w_q", "w_k", "w_v"))
+    hl, khl = w_q.shape[1], w_k.shape[1]
+    q_norm, k_norm = p.get("q_norm"), p.get("k_norm")
+    heads = hl < cfg.n_heads           # q heads over "model"
+    if heads:
+        x = copy_to_model(x, mctx)
+        if cfg.qk_norm:
+            q_norm, k_norm = (copy_to_model(w, mctx) for w in (q_norm,
+                                                               k_norm))
+        if khl == cfg.n_kv_heads:      # kv heads whole: shared by ranks
+            w_k, w_v = copy_to_model(w_k, mctx), copy_to_model(w_v, mctx)
+    q = _proj(x, w_q)
+    k = _proj(x, w_k)
+    v = _proj(x, w_v)
     if cfg.qk_norm:
-        q = L.rms_norm(q, p["q_norm"], cfg.rms_eps)
-        k = L.rms_norm(k, p["k_norm"], cfg.rms_eps)
+        q = L.rms_norm(q, q_norm, cfg.rms_eps)
+        k = L.rms_norm(k, k_norm, cfg.rms_eps)
     cos, sin = L.rope_freqs(positions, cfg.head_dim, cfg.rope_theta)
     q = L.apply_rope(q, cos, sin)
     k = L.apply_rope(k, cos, sin)
     if cache is None:
-        out = L.attention(q, k, v,
+        ka, va = (_kv_heads(k, v, cfg, hl, mctx)
+                  if heads and khl == cfg.n_kv_heads else (k, v))
+        out = L.attention(q, ka, va,
                           q_positions=positions, kv_positions=positions,
                           causal=True, window=window, impl=cfg.attn_impl)
         new_cache = {"k": k, "v": v}
@@ -164,47 +219,63 @@ def _gqa(x, p, cfg: ModelConfig, positions, *, cache=None, pos=None,
         ck[rows, pos] = k[:, 0].to(ck.dtype)
         cv[rows, pos] = v[:, 0].to(cv.dtype)
         S = ck.shape[1]
-        out = L.attention(q, ck.to(cdt), cv.to(cdt),
+        ka, va = ck.to(cdt), cv.to(cdt)
+        if heads and ck.shape[2] == cfg.n_kv_heads:
+            ka, va = _kv_heads(ka, va, cfg, hl, mctx)
+        out = L.attention(q, ka, va,
                           q_positions=torch.zeros((1,), dtype=torch.int32,
                                                   device=x.device),
                           kv_positions=torch.arange(S, device=x.device),
                           causal=False, window=None, kv_len=pos + 1,
                           chunk=S)
         new_cache = {"k": ck, "v": cv}
-    H, hd, d = p["w_o"].shape
-    out = out.reshape(*out.shape[:2], H * hd) @ p["w_o"].reshape(
+    w_o = gather_fsdp(p["w_o"], 2, mctx, d)
+    H, hd, _ = w_o.shape
+    out = out.reshape(*out.shape[:2], H * hd) @ w_o.reshape(
         H * hd, d).to(cdt)
-    return out, new_cache
+    return (reduce_from_model(out, mctx) if heads else out), new_cache
 
 
-def _mla(x, p, cfg: ModelConfig, positions, *, cache=None, pos=None):
-    """Multi-head Latent Attention. The cache keeps only the latent (ckv)
+def _mla(x, p, cfg: ModelConfig, positions, mctx: MeshCtx = None, *,
+         cache=None, pos=None):
+    """Multi-Head Latent Attention. The cache keeps only the latent (ckv)
     and the shared rotary key (krope).
 
     Prefill/train: per-head k and v expanded from the latent (the naive
     path), through the plain attention. Decode: the weight-absorbed path,
     scores and values in the latent space, scores in float32. Decode
-    writes into the cache in place, as `_gqa` does."""
+    writes into the cache in place, as `_gqa` does. On a mesh the latent
+    projections are computed whole on every rank and the heads
+    (`w_uq`, `w_uk`, `w_uv`, `w_o`) are this rank's."""
     m = cfg.mla
     cdt = x.dtype
-    B, T, _ = x.shape
-    H = cfg.n_heads
+    B, T, d = x.shape
     nope, rope = m.qk_nope_head_dim, m.qk_rope_head_dim
     scale = 1.0 / math.sqrt(nope + rope)
+    w_dq, w_dkv, w_kr = (gather_fsdp(p[k], 0, mctx, d)
+                         for k in ("w_dq", "w_dkv", "w_kr"))
+    H = p["w_uq"].shape[1]             # this rank's heads
+    heads = H < cfg.n_heads
 
-    cq = L.rms_norm(x @ p["w_dq"].to(cdt), p["q_ln"], cfg.rms_eps)
+    cq = L.rms_norm(x @ w_dq.to(cdt), p["q_ln"], cfg.rms_eps)
+    ckv = L.rms_norm(x @ w_dkv.to(cdt), p["kv_ln"], cfg.rms_eps)
+    krope = x @ w_kr.to(cdt)
+    if heads:
+        # the whole latents feed this rank's heads: their gradients are
+        # the ranks' parts
+        cq, ckv_h, krope = (copy_to_model(t, mctx) for t in (cq, ckv, krope))
+    else:
+        ckv_h = ckv
     q = _proj(cq, p["w_uq"])
     q_nope, q_rope = q[..., :nope], q[..., nope:]
-    ckv = L.rms_norm(x @ p["w_dkv"].to(cdt), p["kv_ln"], cfg.rms_eps)
-    krope = x @ p["w_kr"].to(cdt)
 
     cos, sin = L.rope_freqs(positions, rope, cfg.rope_theta)
     q_rope = L.apply_rope(q_rope, cos, sin)
     krope = L.apply_rope(krope[:, :, None, :], cos, sin)[:, :, 0, :]
 
     if cache is None:
-        k_nope = _proj(ckv, p["w_uk"])
-        val = _proj(ckv, p["w_uv"])
+        k_nope = _proj(ckv_h, p["w_uk"])
+        val = _proj(ckv_h, p["w_uv"])
         k_full = torch.cat([k_nope, krope[:, :, None, :].expand(B, T, H, rope)],
                            dim=-1)
         q_full = torch.cat([q_nope, q_rope], dim=-1)
@@ -234,9 +305,10 @@ def _mla(x, p, cfg: ModelConfig, positions, *, cache=None, pos=None):
         ctx = torch.einsum("bhts,bsk->bthk", w, ckv_d)
         out = torch.einsum("bthk,khv->bthv", ctx, p["w_uv"].to(cdt))
         new_cache = {"ckv": ckv_c, "krope": kr_c}
-    Hv, hv, d = p["w_o"].shape
-    out = out.reshape(B, T, Hv * hv) @ p["w_o"].reshape(Hv * hv, d).to(cdt)
-    return out, new_cache
+    w_o = gather_fsdp(p["w_o"], 2, mctx, d)
+    Hv, hv, _ = w_o.shape
+    out = out.reshape(B, T, Hv * hv) @ w_o.reshape(Hv * hv, d).to(cdt)
+    return (reduce_from_model(out, mctx) if heads else out), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -245,17 +317,18 @@ def _mla(x, p, cfg: ModelConfig, positions, *, cache=None, pos=None):
 def _ffn(x, p, cfg: ModelConfig, mctx: MeshCtx):
     if cfg.family == "moe":
         return moe_ffn(x, p, cfg, mctx)
-    cdt = x.dtype
-    return L.mlp(x, {k: v.to(cdt) for k, v in p.items()}, cfg.act)
+    return L.sharded_mlp(x, p, cfg.act, cfg.d_ff, mctx)
 
 
 def _block(x, bp, cfg: ModelConfig, mctx: MeshCtx, positions,
            cache=None, pos=None):
     h = L.rms_norm(x, bp["ln_attn"], cfg.rms_eps)
     if cfg.mla is not None:
-        a, new_cache = _mla(h, bp["attn"], cfg, positions, cache=cache, pos=pos)
+        a, new_cache = _mla(h, bp["attn"], cfg, positions, mctx, cache=cache,
+                            pos=pos)
     else:
-        a, new_cache = _gqa(h, bp["attn"], cfg, positions, cache=cache, pos=pos)
+        a, new_cache = _gqa(h, bp["attn"], cfg, positions, mctx, cache=cache,
+                            pos=pos)
     x = x + a
     h = L.rms_norm(x, bp["ln_mlp"], cfg.rms_eps)
     x = x + _ffn(h, bp["mlp"], cfg, mctx)
@@ -264,34 +337,65 @@ def _block(x, bp, cfg: ModelConfig, mctx: MeshCtx, positions,
     return x, new_cache
 
 
-def _embed_in(params, tokens, cfg: ModelConfig):
+def _embed_in(params, tokens, cfg: ModelConfig, mctx: MeshCtx = None):
+    """The tokens' embedding rows in the compute dtype. On a mesh, where
+    the vocab is over "model", each rank looks up the tokens of its block,
+    zeros the others, and the ranks' rows are summed."""
     cdt = getattr(torch, cfg.compute_dtype)
-    # gather, then cast: the same values as the reference's cast-then-gather
-    x = params["embed"][tokens.long()].to(cdt)
+    emb = gather_fsdp(params["embed"], 1, mctx, cfg.d_model)
+    vl = emb.shape[0]
+    if vl < cfg.vocab:
+        t = tokens.long() - mctx.coordinate("model") * vl
+        inside = (t >= 0) & (t < vl)
+        rows = emb[torch.where(inside, t, 0)].to(cdt)
+        x = reduce_from_model(torch.where(inside[..., None], rows,
+                                          torch.zeros((), dtype=cdt,
+                                                      device=rows.device)),
+                              mctx)
+    else:
+        # gather, then cast: the same values as the reference's
+        # cast-then-gather
+        x = emb[tokens.long()].to(cdt)
     if cfg.name.startswith("gemma") or cfg.family == "hybrid":
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cdt)
     return x
 
 
-def _unembed(params, x, cfg: ModelConfig):
+def _unembed(params, x, cfg: ModelConfig, mctx: MeshCtx = None):
+    """Logits; on a mesh with the vocab over "model", this rank's block of
+    them."""
     cdt = x.dtype
     if cfg.tie_embeddings:
-        return x @ params["embed"].to(cdt).T
-    return x @ params["unembed"].to(cdt)
+        w = gather_fsdp(params["embed"], 1, mctx, cfg.d_model)
+        if w.shape[0] < cfg.vocab:
+            x = copy_to_model(x, mctx)
+        return x @ w.to(cdt).T
+    w = gather_fsdp(params["unembed"], 0, mctx, cfg.d_model)
+    if w.shape[1] < cfg.vocab:
+        x = copy_to_model(x, mctx)
+    return x @ w.to(cdt)
+
+
+def _whole_logits(logits, cfg: ModelConfig, mctx: MeshCtx):
+    """Logits whole along the vocab (gathered where they are sharded)."""
+    if logits.shape[-1] < cfg.vocab:
+        return gather_from_model(logits, logits.dim() - 1, mctx)
+    return logits
 
 
 def forward(params, tokens, cfg: ModelConfig, mctx: MeshCtx,
             collect_cache: bool = False):
-    """tokens (B,T) -> logits (B,T,V) [+ stacked kv cache]."""
-    x = _embed_in(params, tokens, cfg)
+    """tokens (B,T) -> logits (B,T,V) [+ stacked kv cache]; on a mesh
+    with the vocab over "model", this rank's block of the logits."""
+    x = _embed_in(params, tokens, cfg, mctx)
     T = tokens.shape[1]
     positions = torch.arange(T, device=x.device)
     # cfg.remat: each layer keeps only its input for the backward and runs
-    # again there (the reference's jax.checkpoint with nothing_saveable).
-    # On one device remat_policy="save_collectives" keeps nothing more than
-    # "nothing": the tensors it would keep are the outputs of the
-    # tensor-parallel all-reduces, which a single device never runs, so
-    # keeping them would spare the recompute no collective.
+    # again there (the reference's jax.checkpoint with nothing_saveable),
+    # its fsdp gathers and model all-reduces included. remat_policy=
+    # "save_collectives" keeps nothing more here: the reference would keep
+    # the outputs of the all-reduces after w_o and w_down, which one
+    # device never runs and a mesh recomputes.
     remat = cfg.remat and torch.is_grad_enabled()
     caches = []
     for i in range(cfg.n_layers):
@@ -304,7 +408,7 @@ def forward(params, tokens, cfg: ModelConfig, mctx: MeshCtx,
         if collect_cache:
             caches.append(c)
     x = L.rms_norm(x, params["ln_f"], cfg.rms_eps)
-    logits = _unembed(params, x, cfg)
+    logits = _unembed(params, x, cfg, mctx)
     if mctx is not None:
         logits = mctx.constraint(logits, mctx.batch_spec(None, "model"))
     if not collect_cache:
@@ -315,7 +419,8 @@ def forward(params, tokens, cfg: ModelConfig, mctx: MeshCtx,
 
 def loss_fn(params, batch, cfg: ModelConfig, mctx: MeshCtx):
     logits = forward(params, batch["tokens"], cfg, mctx)
-    return L.softmax_xent(logits, batch["labels"], batch.get("mask"))
+    return L.softmax_xent(logits, batch["labels"], batch.get("mask"),
+                          mctx if logits.shape[-1] < cfg.vocab else None)
 
 
 # ---------------------------------------------------------------------------
@@ -347,17 +452,17 @@ def cache_spec(cfg: ModelConfig, batch: int, max_len: int,
 def prefill(params, tokens, cfg: ModelConfig, mctx: MeshCtx):
     """Returns (last-token logits (B,V), stacked cache (L,...))."""
     logits, caches = forward(params, tokens, cfg, mctx, collect_cache=True)
-    return logits[:, -1], caches
+    return _whole_logits(logits[:, -1], cfg, mctx), caches
 
 
 def decode_step(params, token, pos, cache, cfg: ModelConfig, mctx: MeshCtx):
     """token (B,), pos (B,) -> (logits (B,V), stacked cache).
 
     The cache is updated in place and returned."""
-    x = _embed_in(params, token[:, None], cfg)
+    x = _embed_in(params, token[:, None], cfg, mctx)
     for i in range(cfg.n_layers):
         x, _ = _block(x, _layer(params["blocks"], i), cfg, mctx,
                       pos[:, None], cache=_layer(cache, i), pos=pos)
     x = L.rms_norm(x, params["ln_f"], cfg.rms_eps)
-    logits = _unembed(params, x, cfg)[:, 0]
-    return logits, cache
+    logits = _unembed(params, x, cfg, mctx)[:, 0]
+    return _whole_logits(logits, cfg, mctx), cache

@@ -7,8 +7,11 @@ each collective as the step dispatches it, on real tensors or under
 FakeTensorMode (the dry-run's trace, in which nothing runs):
 `torch.ops._c10d_functional.*` (DTensor's redistributions,
 `full_tensor()`) and `torch.ops.c10d.*` (`dist.all_reduce`,
-`dist.all_to_all_single`, `dist.all_gather_into_tensor`, the sends of
-`batch_isend_irecv`). For each it records the kind, under HLO's names
+`dist.all_to_all_single`, `dist.all_gather_into_tensor`,
+`dist.reduce_scatter_tensor`, the sends of `batch_isend_irecv`; the
+sharded model's autograd Functions, `models/context.py`, dispatch them
+in the forward and in the backward, which the recorder sees as well).
+For each it records the kind, under HLO's names
 (`COLLECTIVES`), the bytes of its result and its group's size; the
 per-device ring wire bytes follow from those by `hlo.py`'s formulas
 (`_wire_bytes`, unchanged):

@@ -20,14 +20,23 @@ shardings: params as DTensors placed by `param_pspecs`, AdamW moments by
 cache by `cache_pspecs`; whatever a call is given is placed there first
 (`models.params.place`: a global tensor is cut into each rank's shard
 with no communication). Inside the body each rank computes on its batch
-shard with the params gathered whole, and the model runs replicated over
-"model" but where it shards work itself (the experts of `moe_ffn`). The
-loss and gradients come out as each rank's part of the mesh's: scaled by
-1/ranks, they are summed over the mesh, the gradients straight into the
-moments' placement (a reduce-scatter over the data axes), and the update
-all-gathers each param back into its own placement. The metrics are
-replicated. StaticStep captures and replays the body on the DTensors'
-local tensors, with its collectives.
+shard and on the params' local shards (`local_params`): the dense and
+moe families shard their compute over "model" and gather fsdp leaves a
+layer at a time (`models/transformer.py`), so no param is whole on a
+rank; the other families gather theirs whole (`ModelAPI`) and run
+replicated over "model". Either way each rank's loss is its batch
+shard's, the same on every model rank, and its gradient of a local shard
+is that shard's: summed over "data" already where the leaf is sharded
+there (fsdp's reduce-scatter), else the rank's part. Scaled by 1/(data
+ranks), the loss is summed over the data axes and each gradient reduced
+into its moment's placement (a reduce-scatter where ZeRO-1 shards it);
+the update all-gathers each param back into its own placement. The
+metrics are replicated. A decode step reads and writes the local kv
+heads of its cache where the model shards them; a cache sharded over
+"model" along its sequence (`cache_seq_shard`), and every cache of the
+other families, is gathered along "model" and its shard written back.
+StaticStep captures and replays the body on the DTensors' local
+tensors, with its collectives.
 
 `StaticStep.trace` runs a step's body once on arguments placed as a call
 places them (`placed`), with no copy into buffers and no capture: under
@@ -43,15 +52,14 @@ from typing import Any, Callable, Dict
 
 import numpy as np
 import torch
-import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from repro_torch.common.config import ShapeConfig, TrainConfig
 from repro_torch.models.api import ModelAPI, shardings_for
 from repro_torch.models.context import MeshCtx
-from repro_torch.models.params import (fit_spec, param_pspecs, place,
-                                       placements, spec, tree_leaves,
-                                       tree_map, zero1_pspecs)
+from repro_torch.models.params import (fit_spec, local_params,
+                                       param_pspecs, place, placements, spec,
+                                       tree_leaves, tree_map, zero1_pspecs)
 from repro_torch.models.transformer import CacheSpec
 from repro_torch.train.optimizer import AdamState, adamw_update, local
 
@@ -94,14 +102,6 @@ def _microbatch(batch: Dict[str, Any], nmb: int, mctx: MeshCtx):
     return {k: one(v) for k, v in batch.items()}
 
 
-def _compute_params(params, mctx: MeshCtx):
-    """The params this rank computes with: on a mesh each leaf gathered
-    whole (an all-gather where it is sharded)."""
-    if mctx.device_mesh is None:
-        return params
-    return tree_map(lambda p: p.full_tensor().detach(), params)
-
-
 def _model_replicated(pl, mesh) -> list:
     """Placements `pl` on `mesh` with "model" replicated: the compute
     view's, since the model runs replicated over "model"."""
@@ -121,33 +121,57 @@ def _compute_view(t, mctx: MeshCtx):
     return t.to_local()
 
 
-def _placed_output(t: torch.Tensor, s, mctx: MeshCtx):
-    """A rank's compute view `t` (its batch shard, whole along "model") as
-    the DTensor at spec `s` (fitted to the global shape)."""
+def _placed_output(t: torch.Tensor, s, mctx: MeshCtx,
+                   model_local: bool = False):
+    """A rank's compute view `t` (its batch shard, whole along "model", or
+    with `model_local` its shard there too) as the DTensor at spec `s`
+    (fitted to the global shape)."""
     mesh = mctx.device_mesh
     pl = placements(s, mesh)
+    if model_local:
+        return DTensor.from_local(t, mesh, pl)
     return DTensor.from_local(t, mesh, _model_replicated(pl, mesh)
                               ).redistribute(mesh, pl)
 
 
-def _mesh_sum(loss, grads, like, mctx: MeshCtx):
+def _heads_local(api: ModelAPI, s) -> bool:
+    """Whether a rank computes on its local shard of a cache leaf at
+    fitted spec `s`: in the families that shard their compute, unless
+    "model" shards the leaf's sequence (dim 2, `cache_seq_shard`)."""
+    return api.shards_compute and "model" not in (
+        s[2] if isinstance(s[2], tuple) else (s[2],))
+
+
+def _cache_view(c, s, api: ModelAPI, mctx: MeshCtx):
+    return local(c) if _heads_local(api, s) else _compute_view(c, mctx)
+
+
+def _mesh_sum(loss, grads, params, like, mctx: MeshCtx):
     """The mesh's loss and gradients from each rank's: every rank's part
-    scaled by 1/ranks (each rank's loss is its batch shard's mean, and
-    the ranks along "model" compute the same one), the loss all-reduced
-    and each gradient reduced into the placement of its moment in `like`
-    (a reduce-scatter where the moments shard it)."""
+    scaled by 1/(data ranks) (each rank's loss is its batch shard's mean,
+    the same on every model rank), the loss summed over the data axes and
+    each gradient of a local shard of `params` reduced into the placement
+    of its moment in `like` (a sum over the data axes that do not shard
+    the param; a reduce-scatter where the moments shard it)."""
     mesh = mctx.device_mesh
     if mesh is None:
         return loss, grads
-    n = mesh.size()
-    if n > 1:
-        loss = loss / n
-        tree_map(lambda g: g.mul_(1.0 / n), grads)
-    dist.all_reduce(loss)
-    partial = [Partial()] * mesh.ndim
+    dp = mctx.dp_size()
+    if dp > 1:
+        loss = loss / dp
+        tree_map(lambda g: g.mul_(1.0 / dp), grads)
+    batch = mctx.batch_axes
+
+    def parts(pl):
+        return [Partial() if name in batch and p.is_replicate() else p
+                for name, p in zip(mesh.mesh_dim_names, pl)]
+    loss = DTensor.from_local(loss, mesh, parts([Replicate()] * mesh.ndim)
+                              ).redistribute(mesh, [Replicate()] * mesh.ndim
+                                             ).to_local()
     return loss, tree_map(
-        lambda g, m: DTensor.from_local(g, mesh, partial).redistribute(
-            mesh, m.placements), grads, like)
+        lambda g, p, m: DTensor.from_local(g, mesh, parts(p.placements)
+                                           ).redistribute(mesh, m.placements),
+        grads, params, like)
 
 
 def value_and_grad(api: ModelAPI, params, batch, mctx: MeshCtx):
@@ -171,7 +195,7 @@ def make_train_step(api: ModelAPI, tcfg: TrainConfig, mctx: MeshCtx):
     nmb = tcfg.num_microbatches
 
     def train_step(params, opt_state: AdamState, batch):
-        compute = _compute_params(params, mctx)
+        compute = local_params(params)
         if nmb > 1:
             mbs = _microbatch(batch, nmb, mctx)
             adt = getattr(torch, tcfg.accum_dtype)
@@ -193,7 +217,7 @@ def make_train_step(api: ModelAPI, tcfg: TrainConfig, mctx: MeshCtx):
             loss, grads = value_and_grad(
                 api, compute, {k: _compute_view(v, mctx)
                                for k, v in batch.items()}, mctx)
-        loss, grads = _mesh_sum(loss, grads, opt_state.m, mctx)
+        loss, grads = _mesh_sum(loss, grads, params, opt_state.m, mctx)
 
         if tcfg.grad_compression == "int8":
             # quantize-dequantize of the reduced gradient before the
@@ -489,11 +513,12 @@ def jit_prefill_step(api: ModelAPI, mctx: MeshCtx, shape: ShapeConfig):
 
         def body(params, inputs):
             logits, cache = api.prefill(
-                _compute_params(params, mctx),
+                local_params(params),
                 {k: _compute_view(v, mctx) for k, v in inputs.items()}, mctx)
             return (_placed_output(logits, logits_spec, mctx),
                     tree_map(lambda c, s: None if c is None
-                             else _placed_output(c, s, mctx),
+                             else _placed_output(c, s, mctx,
+                                                 _heads_local(api, s)),
                              cache, cache_spec))
     step = StaticStep(body, mctx.device, {
         "params": BIND,
@@ -510,9 +535,9 @@ def jit_decode_step(api: ModelAPI, mctx: MeshCtx, shape: ShapeConfig,
     `api.input_specs(shape)`. The cache buffer is updated in place and
     returned (the reference's donate_argnums=(3,)): a call given it makes
     no copy. Without `donate` the step returns a copy of it. On a mesh
-    the cache is placed by `cache_pspecs`; each step gathers it whole
-    along "model", where it is sharded there, and writes its shard
-    back."""
+    the cache is placed by `cache_pspecs`; each step reads and writes its
+    local kv heads (the dense and moe families), or gathers it whole along
+    "model", where it is sharded there, and writes its shard back."""
     specs = api.input_specs(shape)
     mesh = mctx.device_mesh
     if mesh is None:
@@ -526,17 +551,19 @@ def jit_decode_step(api: ModelAPI, mctx: MeshCtx, shape: ShapeConfig,
             api, mctx, shape)
 
         def body(params, token, pos, cache):
-            view = tree_map(lambda c: None if c is None
-                            else _compute_view(c, mctx), cache)
+            view = tree_map(lambda c, s: None if c is None
+                            else _cache_view(c, s, api, mctx),
+                            cache, cache_spec)
             logits, new = api.decode(
-                _compute_params(params, mctx),
+                local_params(params),
                 {"token": _compute_view(token, mctx),
                  "pos": _compute_view(pos, mctx)}, view, mctx)
 
             def write(c, v, n, s):
                 if n is v and same_memory(v, local(c)):
                     return              # updated in place, c's own storage
-                local(c).copy_(local(_placed_output(n, s, mctx)))
+                local(c).copy_(local(_placed_output(
+                    n, s, mctx, _heads_local(api, s))))
             tree_map(lambda c, v, n, s: None if c is None
                      else write(c, v, n, s), cache, view, new, cache_spec)
             return _placed_output(logits, logits_spec, mctx), cache

@@ -5,9 +5,11 @@
 joins a gloo group of WORLD ranks through the FileStore at STORE, runs
 CASE on the inputs pickled at IN (numpy arrays made by the test from the
 reference) and pickles this rank's results to OUT.RANK. One torch thread
-a rank. `tests/test_torch_multidevice.py` starts the ranks, each under a
-time limit, and compares their results with the reference's.
+a rank. `tests/test_torch_multidevice.py` and
+`tests/test_torch_tensor_parallel.py` start the ranks, each launch under
+a time limit, and compare their results with the reference's.
 """
+import contextlib
 import dataclasses
 import pickle
 import sys
@@ -16,6 +18,10 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch._C._distributed_c10d import ProcessGroup
+from torch.distributed.distributed_c10d import _resolve_process_group
+from torch.distributed.tensor import DTensor
+from torch.utils._python_dispatch import TorchDispatchMode
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "src"))
 
@@ -24,8 +30,9 @@ from repro_torch.configs import tiny_config  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh_ctx  # noqa: E402
 from repro_torch.models.api import ModelAPI  # noqa: E402
 from repro_torch.models.context import make_mesh, mesh_ctx  # noqa: E402
-from repro_torch.models.params import (params_from_numpy,  # noqa: E402
-                                       params_to_numpy, tree_map)
+from repro_torch.models.params import (_leaves,  # noqa: E402
+                                       params_from_numpy, params_to_numpy,
+                                       tree_map)
 from repro_torch.train import optimizer as opt  # noqa: E402
 from repro_torch.train.trainer import (jit_decode_step,  # noqa: E402
                                        jit_prefill_step, jit_train_step)
@@ -49,10 +56,11 @@ def _placements(t):
     return [("S", p.dim) if p.is_shard() else ("R",) for p in t.placements]
 
 
-def train(job, rank):
+def train(job, rank, during=contextlib.nullcontext):
     """From each of the reference's states, one jit_train_step on the
-    (data, model) mesh: loss, grad norm, the params and moments after it
-    (whole), and this rank's moment shards with their placements."""
+    (data, model) mesh, run inside `during()` (given the params it
+    returns): loss, grad norm, the params and moments after it (whole),
+    and this rank's moment shards with their placements."""
     cfg = _cfg(job["cfg"])
     mctx = make_host_mesh_ctx(cfg, *job["mesh"], device="cpu")
     api = ModelAPI(cfg, device="cpu")
@@ -65,7 +73,10 @@ def train(job, rank):
         adam = opt.AdamState(torch.tensor(state["step"], dtype=torch.int32),
                              params_from_numpy(state["m"], device="cpu"),
                              params_from_numpy(state["v"], device="cpu"))
-        params, adam, metrics = step(params, adam, batch)
+        with during() as stepped:
+            params, adam, metrics = step(params, adam, batch)
+            if stepped is not None:
+                stepped.append(params)
         out.append({
             "loss": float(metrics["loss"]),
             "grad_norm": float(metrics["grad_norm"]),
@@ -165,7 +176,69 @@ def serve(job, rank):
     return out
 
 
-CASES = {"train": train, "moe": moe, "gpipe": gpipe, "serve": serve}
+class _Gathers(TorchDispatchMode):
+    """Every all-gather dispatched inside it: its group's ranks, the
+    address of its input's storage, its input's and its output's element
+    counts."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        name = func._schema.name
+        if name == "c10d::_allgather_base_":
+            result, src = args[0], args[1]
+            ranks = dist.get_process_group_ranks(ProcessGroup.unbox(args[2]))
+        elif name == "_c10d_functional::all_gather_into_tensor":
+            result, src = out, args[0]
+            ranks = dist.get_process_group_ranks(
+                _resolve_process_group(args[2]))
+        elif "allgather" in name or "all_gather" in name:
+            raise AssertionError(f"an all-gather the check does not read: "
+                                 f"{name}")
+        else:
+            return out
+        self.seen.append((sorted(ranks), src.untyped_storage().data_ptr(),
+                          src.numel(), result.numel()))
+        return out
+
+
+def tp(job, rank):
+    """The tensor-parallel step of one config on the (data, model) mesh:
+    `train` from each of the reference's states, recording in each step
+    every all-gather (`_Gathers`) and DTensor.full_tensor() call, beside
+    the storages of the params the step updated; then `serve`'s prefill
+    and decode steps."""
+    steps = []
+    real = DTensor.full_tensor
+
+    @contextlib.contextmanager
+    def recorded():
+        calls, out = [], []
+
+        def counted(self, *a, **k):
+            calls.append(tuple(self.shape))
+            return real(self, *a, **k)
+        gathers = _Gathers()
+        DTensor.full_tensor = counted
+        try:
+            with gathers:
+                yield out
+        finally:
+            DTensor.full_tensor = real
+        storages = {t.to_local().untyped_storage().data_ptr(): (
+            "/".join(path), tuple(t.to_local().shape), tuple(t.shape))
+            for path, t in _leaves(out[0])}
+        steps.append({"gathers": gathers.seen, "storages": storages,
+                      "full_tensor_calls": calls})
+    return {"train": train(job, rank, recorded), "steps": steps,
+            "serve": serve(job["serve"], rank) if "serve" in job else None}
+
+
+CASES = {"train": train, "moe": moe, "gpipe": gpipe, "serve": serve,
+         "tp": tp}
 
 
 def main():
