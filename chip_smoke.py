@@ -31,14 +31,15 @@ result):
                library yardstick, used nowhere in the port) at the serve
                shape, at dbrx's and llama-3.2-vision's prefill shapes
                (head_dim 128, 48 and 64 heads over 8) and at phase 12(c)'s
-               (2 x 4096 tokens, one head of 256); holds
+               (2 x 4096 tokens, one head of 256) and 12(d)'s (1 x 4096
+               tokens, 4 heads over one of 128); holds
                flash_attention_bwd's dq, dk and dv against its plain
                version in both types (GQA, MQA, window, ragged,
                head_dim 128 and 256, padded keys, the tile edges, a
                group of 32, the train and serve shapes), then
                times it, its plain version and the backward of
                scaled_dot_product_attention at the serve and train shapes
-               and at phase 12(c)'s;
+               and at phase 12(c)'s and 12(d)'s;
      scans     holds rglru_scan against its plain version (the reference's
                shapes, T = 1, ragged R, the prefill shape (4, 1024, 2560),
                T = 63, 65 and 4096 at R = 2567, a near 1 over 4096 steps,
@@ -54,7 +55,9 @@ result):
                bounds at the prefill (and, for rglru_scan, the decode)
                shape and at a microbatch of the train step (rglru_scan
                forward and reversed at (4, 256, 2560), wkv6 at (4, 256,
-               32, 64)), rglru_scan's launch floor at (1, 1, 32), wkv6's
+               32, 64)) and at phase 12(d)'s local shapes (rglru_scan
+               forward and reversed at (2, 4096, 160), wkv6 at (2, 32768,
+               2, 64)), rglru_scan's launch floor at (1, 1, 32), wkv6's
                two kernels (state, out) apart and together;
      integrity holds stream_cipher and fletcher bit-exact against their
                plain versions (the reference's test shapes, key 0xC0FFEE
@@ -213,7 +216,19 @@ result):
                the serve phase), the step's seconds, its flash launches,
                every call at head_dim 256 with one head, and one forward
                and one backward call at that shape held against their
-               plain versions;
+               plain versions; (d) the same for the other families, each
+               computing on its local shards: recurrentgemma-2b's train
+               step at train_4k whole (8 microbatches of 2 x 4096
+               tokens; rglru_scan forward and reversed at its 160 local
+               channels, no flash launch), rwkv6-1.6b's prefill at
+               prefill_32k whole (2 x 32768 tokens; wkv6 at its 2 local
+               heads, one call a layer) and llama-3.2-vision-90b's train
+               step at train_4k cut to 10 layers (16 microbatches of 1 x
+               4096 tokens and 4,096 patch embeddings; flash at 4 q heads
+               over one kv head of 128): max_memory_allocated beside the
+               dry-run's peak for the cell at that depth, the step's
+               seconds, the launches and every call's shape, then each
+               kernel at its local shape held against its plain version;
      families  training the hybrid, ssm and encdec families, in the
                train phase's style and traffic: (a) recurrentgemma-2b and
                rwkv6-1.6b whole at full width (attn_impl="flash", float32
@@ -274,10 +289,11 @@ result):
 Each kernel's launch counts are zeroed just before the path that drives it
 (rs_matmul: the ec phase; stream_cipher and fletcher: the step on the
 placed stream; flash_attention_fwd: each of the granite, dbrx and VLM
-serve phases and the mesh phase's steps (a) and (c), and its launches are
-their sum; rglru_scan and wkv6: their serve phases and their train paths
-in the families phase; flash_attention_bwd: the train phase and the mesh
-phase's steps) and read just after it. A wrapper counts the launches it makes itself; a call captured into a
+serve phases and the mesh phase's steps (a), (c) and (d), and its
+launches are their sum; rglru_scan and wkv6: their serve phases, their
+train paths in the families phase and the mesh phase's step (d);
+flash_attention_bwd: the train phase and the mesh phase's steps) and read
+just after it. A wrapper counts the launches it makes itself; a call captured into a
 CUDA graph launches nothing, and each replay of the graph launches what
 the capture recorded, so on the compiled paths a kernel's launches are
 the wrapper's count plus its kernels in each graph (from traced
@@ -824,6 +840,10 @@ SERVE_SHAPE = (4, 1024, 32, 8, 64)                  # B, T=S, H, KH, D
 # 4096 tokens) on one rank of the 16 x 16 mesh, its 16 heads over 16 model
 # ranks: one head and one kv head of 256
 RANK_SHAPE = (2, 4096, 1, 1, 256)
+# phase 12(d)'s: a microbatch of llama-3.2-vision-90b's train_4k step (1 x
+# 4096 tokens) on one rank: 4 of its 64 q heads, whose group of 8 reads one
+# of the 8 kv heads (which do not divide the 16 model ranks), head_dim 128
+VLM_RANK_SHAPE = (1, 4096, 4, 1, 128)
 D128_SHAPES = {  # arch -> its prefill wave's attention: B, T=S, H, KH, D
     "dbrx-132b": (4, 1024, 48, 8, 128),
     "llama-3.2-vision-90b": (4, 1024, 64, 8, 128),
@@ -896,6 +916,7 @@ def flash_phase(seed: int) -> dict:
     d128 = {arch: _flash_times(shape, gen)
             for arch, shape in D128_SHAPES.items()}
     d256 = _flash_times(RANK_SHAPE, gen)
+    vlm_rank = _flash_times(VLM_RANK_SHAPE, gen)
     # the launch floor: one CTA (B = H = KH = 1, T = S = 16, bf16)
     q1, k1, v1 = (torch.randn(1, FLASH_FLOOR_T, 1, 64, generator=gen,
                               device="cuda").bfloat16() for _ in range(3))
@@ -908,7 +929,7 @@ def flash_phase(seed: int) -> dict:
           f"the device, {floor_call_ms:.6f} ms a call")
     return {"max_abs_err": max(worst.values()), "max_abs_err_by_dtype": worst,
             "max_abs_err_at_d128_prefill": at_prefill, **times, "d128": d128,
-            "d256": d256,
+            "d256": d256, "vlm_rank": vlm_rank,
             "floor_ms": floor_ms, "floor_call_ms": floor_call_ms}
 
 
@@ -1050,15 +1071,16 @@ def flash_bwd_phase(seed: int) -> dict:
     print(f"flash_attention_bwd within tolerance of its plain version in "
           f"{n_checks} checks of dq, dk and dv; max abs error {worst}")
 
-    # times at the train and serve shapes and phase 12(c)'s: `ms` the two
-    # kernels' device
+    # times at the train and serve shapes and phase 12(c)'s and 12(d)'s:
+    # `ms` the two kernels' device
     # time a call (profiler), `call_ms` the backward as autograd runs it
     # (delta, then both kernels; CUDA events), `library_ms` the backward of
     # scaled_dot_product_attention alone, given dout
     shapes = {}
     for shape_name, (B, T, H, KH, D) in (("train", TRAIN_SHAPE),
                                          ("serve", SERVE_SHAPE),
-                                         ("rank", RANK_SHAPE)):
+                                         ("rank", RANK_SHAPE),
+                                         ("vlm_rank", VLM_RANK_SHAPE)):
         q, k, v, dout = inputs(B, T, H, KH, D, torch.bfloat16)
         scale = D ** -0.5
         out, lse = ops.flash_attention(q, k, v, return_lse=True)
@@ -1131,6 +1153,8 @@ RGLRU_FLOOR = (1, 1, 32)            # one CTA of one warp, one step
 RGLRU_PREFILL = (4, 1024, 2560)     # recurrentgemma-2b: B, T, d_rnn
 RGLRU_DECODE = (4, 1, 2560)
 RGLRU_TRAIN = (4, 256, 2560)        # a microbatch of its train step
+RGLRU_RANK = (2, 4096, 160)         # phase 12(d): a train_4k microbatch on
+#                                     one rank, 2560 channels over 16
 WKV_CASES = [  # B, T, H, hd: the reference's (tests/test_kernels.py:152-154),
     # ragged T, head_dim 16 and 128, T = 1 and the prefill shape
     (1, 64, 2, 32), (2, 96, 2, 64), (1, 33, 1, 64), (1, 128, 4, 64),
@@ -1142,6 +1166,8 @@ WKV_STRONG_CASES = [  # B, T, H, hd, decay: held against the sequential
     (1, 64, 1, 32, "all"), (1, 200, 2, 64, "half")]
 WKV_PREFILL = (4, 1024, 32, 64)     # rwkv6-1.6b: B, T, H, hd
 WKV_TRAIN = (4, 256, 32, 64)        # a microbatch of its train step
+WKV_RANK = (2, 32768, 2, 64)        # phase 12(d): prefill_32k on one rank,
+#                                     32 heads over 16
 
 
 def rglru_bound(B: int, T: int, R: int, h0: bool) -> dict:
@@ -1303,7 +1329,9 @@ def scan_phase(seed: int) -> dict:
             ("prefill", RGLRU_PREFILL, False, False),
             ("decode", RGLRU_DECODE, True, False),
             ("train", RGLRU_TRAIN, False, False),
-            ("train_reverse", RGLRU_TRAIN, False, True)):
+            ("train_reverse", RGLRU_TRAIN, False, True),
+            ("rank", RGLRU_RANK, False, False),
+            ("rank_reverse", RGLRU_RANK, False, True)):
         a, b, h0 = scan_inputs(B, T, R)
         h0 = h0 if with_h0 else None
         ms = kernel_device_ms(lambda: RGK.rglru_scan(a, b, h0, reverse=rev),
@@ -1386,6 +1414,24 @@ def scan_phase(seed: int) -> dict:
           f"{wkv['train']['call_ms']:.6f} ms a call, plain "
           f"{wkv['train']['plain_ms']:.6f} ms; bound "
           f"{tbound['bound_ms']:.6f} ms by {tbound['bound_by']}")
+    # at phase 12(d)'s prefill on one rank (its 2 local heads, no s0)
+    B, T, H, hd = WKV_RANK
+    xs = (randn(B, T, H, hd), 0.5 * randn(B, T, H, hd), randn(B, T, H, hd),
+          torch.exp(-torch.exp(randn(B, T, H, hd))), 0.5 * randn(H, hd))
+    rbound = wkv_bound(B, T, H, hd, s0=False)
+    wkv["rank"] = {
+        "shape": {"B": B, "T": T, "H": H, "hd": hd},
+        "ms": kernel_device_ms(lambda: WK.wkv6(*xs), 10, WK.KERNEL_NAME,
+                               per_call=WK.KERNELS_PER_CALL),
+        "call_ms": cuda_ms(lambda: wops.wkv6(*xs), 10),
+        "plain_ms": cuda_ms(lambda: wref.wkv_plain(*xs), 2), **rbound}
+    print(f"wkv6 at phase 12(d)'s rank shape (B={B}, T={T}, H={H}, "
+          f"hd={hd}): both kernels {wkv['rank']['ms']:.6f} ms on the "
+          f"device ({wkv['rank']['ms'] / rbound['bound_ms']:.2f}x the "
+          f"bound), {wkv['rank']['call_ms']:.6f} ms a call, plain "
+          f"{wkv['rank']['plain_ms']:.6f} ms; bound "
+          f"{rbound['bound_ms']:.6f} ms by {rbound['bound_by']}")
+    del xs
     return {"rglru": {"max_abs_err": max(worst.values()),
                       "max_abs_err_fwd": worst["fwd"],
                       "max_abs_err_bwd": worst["bwd"], "legs": shapes,
@@ -4067,31 +4113,97 @@ def mesh_phase(seed: int, times: dict) -> dict:
     return {"train": train, "moe": moe}
 
 
-# -- phase 12(c): one rank of the production 16 x 16 mesh at full width --------
+# -- phase 12(c), 12(d): one rank of the production 16 x 16 mesh at full width --
 RANK_ARCH, RANK_CELL = "gemma-7b", "train_4k"
 RANK_DRYRUN = """
 import json, sys
 from repro_torch.launch import dryrun
 print(json.dumps(dryrun.run_cell(sys.argv[1], sys.argv[2])))
 """
+FAMILY_RANKS = {  # 12(d): arch -> (cell, layers kept; None: whole)
+    "recurrentgemma-2b": ("train_4k", None),
+    # a prefill, not a train step: on the card the plain wkv6_backward at
+    # T = 4096 is a sequential autograd recurrence of about 16 x the
+    # ~8,900 operations a call it takes at T = 256, past the time limit
+    "rwkv6-1.6b": ("prefill_32k", None),
+    # 2 of its 20 super-blocks (10 of 100 layers), as the vlm serve phase
+    # cuts it
+    VLM: ("train_4k", VLM_SUPER_BLOCKS * 5),
+}
+FAMILY_RANK_DRYRUN = """
+import json, sys
+from repro_torch.common.config import SHAPE_BY_NAME
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import production_mesh_shape
+out = {}
+for arch, (cell, layers) in json.loads(sys.argv[1]).items():
+    cfg = get_config(arch).replace(attn_impl=dryrun.ATTN_IMPL)
+    if layers:
+        cfg = cfg.replace(n_layers=layers)
+    out[arch] = dryrun.trace_cell(cfg, SHAPE_BY_NAME[cell],
+                                  production_mesh_shape())
+print(json.dumps(out))
+"""
 
 
-def rank_phase(seed: int, fake_dryrun) -> dict:
-    """12(c): rank 0 of the 16 x 16 mesh over torch's fake process group
-    (the dry-run's "fake" backend: its collectives move nothing, so the
-    values are not the model's, and this phase measures memory and time
-    only; tests/test_torch_tensor_parallel.py holds the values on gloo
-    ranks), with real tensors on the card: gemma-7b's eager train step at
-    train_4k (8 microbatches of 2 x 4096 tokens), params, moments and
-    inputs made as this rank's shards. max_memory_allocated beside the
-    dry-run's peak for the cell, the step's seconds, the flash launches
-    (every call at RANK_SHAPE, head_dim 256), and one forward and one
-    backward call at that shape held against their plain versions."""
+def _kernel_calls():
+    """A context in which each model kernel's wrapper counts its launches
+    from 0 and every call's shape is kept: flash_attention's (q, k),
+    rglru_scan's (a, reversed) and wkv6's r. Yields a dict whose "calls"
+    fill as the path runs and whose "launches" are read on leaving."""
+    import contextlib
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.rglru_scan import ops as rops
+    from repro_torch.kernels.rwkv6_scan import ops as wops
+    real = (fops.flash_attention, rops._scan, wops._forward)
+    out = {"calls": {"flash_attention": set(), "rglru_scan": set(),
+                     "wkv6": set()}}
+    calls = out["calls"]
+
+    def flash(q, k, v, **kw):
+        calls["flash_attention"].add((tuple(q.shape), tuple(k.shape)))
+        return real[0](q, k, v, **kw)
+
+    def scan(a, b, h0, reverse):
+        calls["rglru_scan"].add((tuple(a.shape), bool(reverse)))
+        return real[1](a, b, h0, reverse)
+
+    def wkv(r, *rest):
+        calls["wkv6"].add(tuple(r.shape))
+        return real[2](r, *rest)
+
+    @contextlib.contextmanager
+    def counting():
+        for m in (fops, rops, wops):
+            m.reset_launches()
+        # each is looked up at its call
+        fops.flash_attention, rops._scan, wops._forward = flash, scan, wkv
+        try:
+            yield out
+        finally:
+            fops.flash_attention, rops._scan, wops._forward = real
+            out["launches"] = {"flash_attention": fops.launches(),
+                               "rglru_scan": rops.launches(),
+                               "wkv6": wops.launches()}
+    return counting()
+
+
+def _rank_step(arch: str, cell: str, layers, seed: int) -> dict:
+    """Rank 0 of the production 16 x 16 mesh over torch's fake process
+    group (the dry-run's "fake" backend: its collectives move nothing, so
+    the values are not the model's, and this measures memory and time
+    only; tests/test_torch_tensor_parallel*.py hold the values on gloo
+    ranks), with real tensors on the card: `arch` (cut to `layers` where
+    given) at `cell`, its step's body run once eagerly on params (and
+    AdamW moments) and inputs made as this rank's shards. Returns the
+    step's seconds, max_memory_allocated over it, the state's GB, each
+    model kernel's launches and call shapes (`_kernel_calls`), and the
+    loss (train) or whether the last logits are finite (prefill)."""
     import torch
     import torch.distributed as dist
     from repro_torch.common.config import SHAPE_BY_NAME, TrainConfig
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import ops, ref
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import production_mesh_shape
     from repro_torch.models.api import ModelAPI, shardings_for
@@ -4099,10 +4211,13 @@ def rank_phase(seed: int, fake_dryrun) -> dict:
     from repro_torch.models.params import (init_params, sharded_zeros,
                                            tree_map, zero1_pspecs)
     from repro_torch.train.optimizer import AdamState
-    from repro_torch.train.trainer import jit_train_step, map_tree, placed
+    from repro_torch.train.trainer import (jit_prefill_step, jit_train_step,
+                                           map_tree, placed)
 
-    cfg = get_config(RANK_ARCH).replace(attn_impl="flash")
-    shape = SHAPE_BY_NAME[RANK_CELL]
+    cfg = get_config(arch).replace(attn_impl="flash")
+    if layers:
+        cfg = cfg.replace(n_layers=layers)
+    shape = SHAPE_BY_NAME[cell]
     ms = production_mesh_shape()
     gc.collect()
     torch.cuda.empty_cache()
@@ -4116,58 +4231,74 @@ def rank_phase(seed: int, fake_dryrun) -> dict:
         gen = torch.Generator(device="cuda").manual_seed(seed)
         params = init_params(defs, gen, getattr(torch, cfg.param_dtype),
                              mesh=mesh, rules=mctx.rules)
-        z = zero1_pspecs(defs, mesh, mctx.rules)
-        moments = [tree_map(lambda d, s: sharded_zeros(
-            d.shape, torch.float32, dev, mesh, s), defs, z) for _ in "mv"]
-        opt = AdamState(torch.zeros((), dtype=torch.int32, device=dev),
-                        *moments)
         specs = api.input_specs(shape)
         fitted = shardings_for(mesh, specs, api.input_pspecs(mctx, shape))
-        batch = map_tree(lambda c, s: sharded_zeros(c.shape, c.dtype, dev,
-                                                    mesh, s), specs, fitted)
-        for t in batch.values():
-            t.to_local().random_(0, cfg.vocab, generator=gen)
-        nmb = dryrun.TRAIN_MICROBATCHES[RANK_ARCH]
-        step = jit_train_step(api, TrainConfig(num_microbatches=nmb), mctx,
-                              shape)
-        args = placed(step, params, opt, batch)
+        inputs = map_tree(lambda c, s: sharded_zeros(c.shape, c.dtype, dev,
+                                                     mesh, s), specs, fitted)
+        for t in inputs.values():
+            if t.dtype.is_floating_point:
+                t.to_local().normal_(generator=gen)
+            else:
+                t.to_local().random_(0, cfg.vocab, generator=gen)
+        nmb = 1
+        if shape.kind == "train":
+            z = zero1_pspecs(defs, mesh, mctx.rules)
+            moments = [tree_map(lambda d, s: sharded_zeros(
+                d.shape, torch.float32, dev, mesh, s), defs, z)
+                for _ in "mv"]
+            opt = AdamState(torch.zeros((), dtype=torch.int32, device=dev),
+                            *moments)
+            nmb = dryrun.TRAIN_MICROBATCHES[arch]
+            step = jit_train_step(api, TrainConfig(num_microbatches=nmb),
+                                  mctx, shape)
+            args = placed(step, params, opt, inputs)
+            del moments, opt
+        else:
+            step = jit_prefill_step(api, mctx, shape)
+            args = placed(step, params, inputs)
+        del params, inputs
         state_gb = (torch.cuda.memory_allocated() - before) / 1e9
-        shapes = set()
-        kernel_path = ops.flash_attention
-
-        def recording(q, k, v, **kw):
-            shapes.add((tuple(q.shape), tuple(k.shape)))
-            return kernel_path(q, k, v, **kw)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        ops.reset_launches()
-        ops.flash_attention = recording      # layers.attention looks it up
-        try:
+        with _kernel_calls() as kernels:
             t0 = time.perf_counter()
             out = step.step.trace(*args)
             torch.cuda.synchronize()
             step_s = time.perf_counter() - t0
-        finally:
-            ops.flash_attention = kernel_path
-        launched = ops.launches()
         peak = torch.cuda.max_memory_allocated() - before
-        loss = float(out[2]["loss"])
-        del out, args, params, opt, moments, batch, step
+        if shape.kind == "train":
+            result = {"loss": float(out[2]["loss"])}
+        else:
+            result = {"logits_finite": bool(
+                torch.isfinite(out[0].to_local()).all())}
+        del out, args, step
     finally:
         dist.destroy_process_group()
     gc.collect()
     torch.cuda.empty_cache()
-    B, T, H, KH, D = RANK_SHAPE
-    want = {((B, T, H, D), (B, T, KH, D))}
-    check(shapes == want, f"12(c): flash calls at {shapes}, not {want}")
-    check(launched["fwd"] > 0 and launched["bwd"] > 0,
-          f"12(c): the step launched no flash kernel: {launched}")
+    return {"arch": arch, "cell": cell, "layers": cfg.n_layers,
+            "microbatches": nmb,
+            "rows": shape.global_batch // ms.shape[0] // nmb,
+            "seq_len": shape.seq_len, "step_s": step_s,
+            "max_memory_allocated_gb": peak / 1e9, "state_gb": state_gb,
+            "launches": kernels["launches"],
+            "calls": {k: sorted(v) for k, v in kernels["calls"].items()},
+            **result}
+
+
+def _flash_held(label: str, shape: tuple, gen) -> tuple:
+    """One flash forward and one backward call at (B, T=S, H, KH, D),
+    bf16, causal, held against their plain versions; their largest
+    errors."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops, ref
+    B, T, H, KH, D = shape
     q, k, v, dout = (torch.randn(B, T, h, D, generator=gen, device="cuda"
                                  ).bfloat16() for h in (H, KH, KH, H))
     o, lse = ops.flash_attention(q, k, v, return_lse=True)
     fwd_err, ok = in_tolerance(o, ref.attention_ref(q, k, v),
                                FLASH_TOL["bfloat16"])
-    check(ok, f"12(c): flash forward at {RANK_SHAPE} off its plain version "
+    check(ok, f"{label}: flash forward at {shape} off its plain version "
           f"by {fwd_err}")
     got = ops.flash_attention_backward(q, k, v, o, lse, dout, scale=D ** -0.5)
     want_g = ref.flash_attention_bwd_ref(q, k, v, o, lse, dout,
@@ -4176,29 +4307,161 @@ def rank_phase(seed: int, fake_dryrun) -> dict:
     bwd_err = 0.0
     for g, w, name in zip(got, want_g, ("dq", "dk", "dv")):
         err, ok = in_tolerance(g, w, BWD_TOL["bfloat16"])
-        check(ok, f"12(c): flash backward {name} at {RANK_SHAPE} off its "
+        check(ok, f"{label}: flash backward {name} at {shape} off its "
               f"plain version by {err}")
         bwd_err = max(bwd_err, err)
+    return fwd_err, bwd_err
+
+
+def _rank_line(label: str, got: dict, dry: dict, ms) -> float:
+    """Prints one rank's step beside its dry-run; returns the dry-run's
+    peak in GB."""
+    dry_gb = dry["memory"]["peak_memory_in_bytes"] / 1e9
+    peak_gb = got["max_memory_allocated_gb"]
+    check(peak_gb < 80, f"{label}: {peak_gb} GB past one card")
+    launched = {k: v for k, v in got["launches"].items() if any(v.values())}
+    print(f"[rank] {label} {got['arch']} x {got['cell']} ({got['layers']} "
+          f"layers), rank 0 of the {ms.shape[0]} x {ms.shape[1]} mesh over "
+          f"the fake process group, {got['microbatches']} microbatch(es) of "
+          f"{got['rows']} x {got['seq_len']} tokens, eager: step "
+          f"{got['step_s']:.3f} s; max_memory_allocated {peak_gb:.3f} GB "
+          f"(params, moments and inputs {got['state_gb']:.3f} GB) vs the "
+          f"dry-run's peak {dry_gb:.3f} GB (ratio {dry_gb / peak_gb:.4f}, "
+          f"traced in {dry['trace_s']} s); launches {launched} at "
+          f"{ {k: v for k, v in got['calls'].items() if v} }; "
+          + ", ".join(f"{k} {v}" for k, v in got.items()
+                      if k in ("loss", "logits_finite"))
+          + " (fake collectives: not the model's)")
+    return dry_gb
+
+
+def rank_phase(seed: int, fake_dryrun) -> dict:
+    """12(c): `_rank_step` of gemma-7b's train step at train_4k (8
+    microbatches of 2 x 4096 tokens): max_memory_allocated beside the
+    dry-run's peak for the cell, the step's seconds, the flash launches
+    (every call at RANK_SHAPE, head_dim 256), and one forward and one
+    backward call at that shape held against their plain versions."""
+    import torch
+    from repro_torch.launch.mesh import production_mesh_shape
+    got = _rank_step(RANK_ARCH, RANK_CELL, None, seed)
+    launched = got["launches"]["flash_attention"]
+    B, T, H, KH, D = RANK_SHAPE
+    want = [((B, T, H, D), (B, T, KH, D))]
+    check(got["calls"]["flash_attention"] == want,
+          f"12(c): flash calls at {got['calls']['flash_attention']}, not "
+          f"{want}")
+    check(launched["fwd"] > 0 and launched["bwd"] > 0,
+          f"12(c): the step launched no flash kernel: {launched}")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    fwd_err, bwd_err = _flash_held("12(c)", RANK_SHAPE, gen)
     fake = _dryrun_result(fake_dryrun)
-    dry_gb = fake["memory"]["peak_memory_in_bytes"] / 1e9
-    peak_gb = peak / 1e9
-    check(peak_gb < 80, f"12(c): {peak_gb} GB past one card")
-    print(f"[rank] (c) {RANK_ARCH} x {RANK_CELL}, rank 0 of the "
-          f"{ms.shape[0]} x {ms.shape[1]} mesh over the fake process group, "
-          f"{nmb} microbatches of {shape.global_batch // ms.shape[0] // nmb}"
-          f" x {shape.seq_len} tokens, eager: step {step_s:.3f} s; "
-          f"max_memory_allocated {peak_gb:.3f} GB (params, moments and "
-          f"inputs {state_gb:.3f} GB) vs the dry-run's peak {dry_gb:.3f} GB "
-          f"(ratio {dry_gb / peak_gb:.4f}); flash launches {launched} at "
-          f"{RANK_SHAPE} (B, T=S, H, KH, D); one forward and one backward "
-          f"call there vs their plain versions: {fwd_err:.6f}, "
-          f"{bwd_err:.6f}; loss {loss} (fake collectives: not the model's)")
-    return {"arch": RANK_ARCH, "cell": RANK_CELL, "step_s": step_s,
-            "max_memory_allocated_gb": peak_gb, "state_gb": state_gb,
+    dry_gb = _rank_line("(c)", got, fake, production_mesh_shape())
+    print(f"[rank] (c) one flash forward and one backward call at "
+          f"{RANK_SHAPE} (B, T=S, H, KH, D) vs their plain versions: "
+          f"{fwd_err:.6f}, {bwd_err:.6f}")
+    peak_gb = got["max_memory_allocated_gb"]
+    return {"arch": RANK_ARCH, "cell": RANK_CELL, "step_s": got["step_s"],
+            "max_memory_allocated_gb": peak_gb, "state_gb": got["state_gb"],
             "dryrun_peak_gb": dry_gb, "dryrun_trace_s": fake["trace_s"],
             "dryrun_over_card": dry_gb / peak_gb,
             "flash_launches": launched, "flash_fwd_err": fwd_err,
-            "flash_bwd_err": bwd_err, "microbatches": nmb}
+            "flash_bwd_err": bwd_err, "microbatches": got["microbatches"]}
+
+
+def family_rank_phase(seed: int, fake_dryrun) -> dict:
+    """12(d): `_rank_step` of the hybrid, ssm and vlm families
+    (FAMILY_RANKS): recurrentgemma-2b's train step at train_4k (8
+    microbatches of 2 x 4096 tokens; every rglru_scan call, forward and
+    reversed, at its 160 local channels, RGLRU_RANK; its local attention
+    takes the plain path, as the reference passes it no impl: no flash
+    launch), rwkv6-1.6b's prefill at prefill_32k (2 x 32768 tokens; every
+    wkv6 call at its 2 local heads, WKV_RANK, one a layer) and
+    llama-3.2-vision-90b's train step at train_4k cut to 10 layers (16
+    microbatches of 1 x 4096 tokens and 4,096 patch embeddings; every
+    flash call at VLM_RANK_SHAPE). Each: max_memory_allocated beside the
+    dry-run's peak for the cell at that depth (a process of its own,
+    started before the serve phase), the step's seconds, the launches and
+    call shapes; then each kernel at its local shape held against its
+    plain version: rglru_scan forward and reversed (1e-5), wkv6 (3e-4),
+    the flash forward and backward (2e-2, 5e-2)."""
+    import torch
+    from repro_torch.kernels.rglru_scan import kernel as RGK
+    from repro_torch.kernels.rglru_scan import ref as rref
+    from repro_torch.kernels.rwkv6_scan import kernel as WK
+    from repro_torch.kernels.rwkv6_scan import ref as wref
+    from repro_torch.launch.mesh import production_mesh_shape
+    ms = production_mesh_shape()
+    runs = {arch: _rank_step(arch, cell, layers, seed)
+            for arch, (cell, layers) in FAMILY_RANKS.items()}
+    hybrid, ssm, vlm = (runs[a] for a in FAMILY_RANKS)
+    want = {"recurrentgemma-2b": ("rglru_scan", [(RGLRU_RANK, False),
+                                                 (RGLRU_RANK, True)]),
+            "rwkv6-1.6b": ("wkv6", [WKV_RANK]),
+            VLM: ("flash_attention", [(
+                VLM_RANK_SHAPE[:3] + VLM_RANK_SHAPE[4:],
+                VLM_RANK_SHAPE[:2] + VLM_RANK_SHAPE[3:])])}
+    for arch, (kernel, calls) in want.items():
+        got = runs[arch]
+        check(got["calls"][kernel] == calls, f"12(d) {arch}: {kernel} "
+              f"calls at {got['calls'][kernel]}, not {calls}")
+        for other, shapes in got["calls"].items():
+            check(other == kernel or not shapes, f"12(d) {arch}: {other} "
+                  f"called at {shapes}")
+    check(hybrid["launches"]["rglru_scan"]["fwd"] > 0
+          and hybrid["launches"]["rglru_scan"]["bwd"] > 0,
+          f"12(d): the hybrid's step launched {hybrid['launches']}")
+    n_wkv = ssm["launches"]["wkv6"]["fwd"]
+    from repro_torch.configs import get_config
+    check(n_wkv == get_config("rwkv6-1.6b").n_layers,
+          f"12(d): the ssm's prefill launched wkv6 {n_wkv} times")
+    vf = vlm["launches"]["flash_attention"]
+    check(vf["fwd"] > 0 and vf["bwd"] > 0,
+          f"12(d): the vlm's step launched flash {vf}")
+    check(all(v.get("loss") is None or np.isfinite(v["loss"])
+              for v in runs.values()) and ssm["logits_finite"],
+          f"12(d): a value not finite: {runs}")
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 12)
+    B, T, R = RGLRU_RANK
+    a = torch.sigmoid(2 * torch.randn(B, T, R, generator=gen, device="cuda"))
+    b = torch.randn(B, T, R, generator=gen, device="cuda")
+    rg_err = 0.0
+    for reverse in (False, True):
+        err, ok = in_tolerance(RGK.rglru_scan(a, b, None, reverse=reverse),
+                               rref.rglru_scan_ref(a, b, None,
+                                                   reverse=reverse), 1e-5)
+        check(ok, f"12(d): rglru_scan at {RGLRU_RANK} (reverse={reverse}) "
+              f"off its plain version by {err}")
+        rg_err = max(rg_err, err)
+    del a, b
+    B, T, H, hd = WKV_RANK
+    xs = [torch.randn(B, T, H, hd, generator=gen, device="cuda")
+          for _ in range(4)]
+    xs[1] *= 0.5
+    xs[3] = torch.exp(-torch.exp(xs[3]))
+    u = 0.5 * torch.randn(H, hd, generator=gen, device="cuda")
+    wkv_err = 0.0
+    for g, w, name in zip(WK.wkv6(*xs, u), wref.wkv_plain(*xs, u),
+                          ("y", "state")):
+        err, ok = in_tolerance(g, w, 3e-4)
+        check(ok, f"12(d): wkv6 {name} at {WKV_RANK} off its plain version "
+              f"by {err}")
+        wkv_err = max(wkv_err, err)
+    del xs, u
+    fwd_err, bwd_err = _flash_held("12(d)", VLM_RANK_SHAPE, gen)
+
+    fake = _dryrun_result(fake_dryrun)
+    for arch, got in runs.items():
+        got["dryrun_peak_gb"] = _rank_line("(d)", got, fake[arch], ms)
+        got["dryrun_trace_s"] = fake[arch]["trace_s"]
+        got["dryrun_flops"] = fake[arch]["flops_per_device"]
+    print(f"[rank] (d) at the local shapes vs the plain versions: "
+          f"rglru_scan forward and reversed at {RGLRU_RANK} (B, T, R) "
+          f"{rg_err:.3e}; wkv6 at {WKV_RANK} (B, T, H, hd) {wkv_err:.3e}; "
+          f"flash forward and backward at {VLM_RANK_SHAPE} (B, T=S, H, KH, "
+          f"D) {fwd_err:.6f}, {bwd_err:.6f}")
+    return {"runs": runs, "rglru_err": rg_err, "wkv_err": wkv_err,
+            "flash_fwd_err": fwd_err, "flash_bwd_err": bwd_err}
 
 
 # -- phase 13: the dry-run and the roofline -----------------------------------
@@ -4418,7 +4681,7 @@ def main(argv=None) -> int:
     if args.stream_mib != 1024:
         print(f"stream cut to {args.stream_mib} MiB from 1024 MiB")
     times: dict = {}
-    rank_dryrun = None
+    rank_dryrun = family_dryrun = None
     try:
         t0 = time.perf_counter()
         card = card_line()
@@ -4491,6 +4754,8 @@ def main(argv=None) -> int:
         # 12(c)'s dry-run (minutes of one CPU core), in a process of its
         # own from here on, after the storage phases it would slow
         rank_dryrun = _dryrun_process(RANK_DRYRUN, RANK_ARCH, RANK_CELL)
+        family_dryrun = _dryrun_process(FAMILY_RANK_DRYRUN,
+                                        json.dumps(FAMILY_RANKS))
         t0 = time.perf_counter()
         serve = serve_phase(args.seed, times)
         times["serve_phase_s"] = time.perf_counter() - t0
@@ -4522,6 +4787,9 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         rank = rank_phase(args.seed, rank_dryrun)
         times["rank_phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        family_rank = family_rank_phase(args.seed, family_dryrun)
+        times["family_rank_phase_s"] = time.perf_counter() - t0
 
         # after the mesh phase: run before it, they left the profiler
         # losing records in the mesh phase's single traces (on an NVIDIA
@@ -4546,9 +4814,10 @@ def main(argv=None) -> int:
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     finally:
-        if rank_dryrun is not None:
-            rank_dryrun.kill()
-            rank_dryrun.wait()
+        for proc in (rank_dryrun, family_dryrun):
+            if proc is not None:
+                proc.kill()
+                proc.wait()
 
     enc = kern["legs"]["encode"]
     total = sum(launches[leg] for leg in ("encode", "delta", "decode"))
@@ -4564,6 +4833,7 @@ def main(argv=None) -> int:
         print(f"train {arch}:", json.dumps(stats))
     print("mesh:", json.dumps(mesh))
     print("rank:", json.dumps(rank))
+    print("family rank:", json.dumps(family_rank))
     print("dryrun:", json.dumps(dry))
     # flash_attention_fwd's serve paths, each counted from 0 just before it
     flash_paths = {"granite-3-2b": serve["flash_launches"],
@@ -4572,10 +4842,14 @@ def main(argv=None) -> int:
                    "dense-100m mesh train": mesh["train"]["flash_launches"][
                        "fwd"],
                    f"{RANK_ARCH} rank train": rank["flash_launches"]["fwd"]}
+    vlm_rank = family_rank["runs"][VLM]["launches"]["flash_attention"]
+    flash_paths[f"{VLM} rank train"] = vlm_rank["fwd"]
     for arch, leg in flash["d128"].items():
         leg["launches"] = flash_paths[arch]
     flash["d256"]["launches"] = rank["flash_launches"]["fwd"]
+    flash["vlm_rank"]["launches"] = vlm_rank["fwd"]
     flash_bwd["shapes"]["rank"]["launches"] = rank["flash_launches"]["bwd"]
+    flash_bwd["shapes"]["vlm_rank"]["launches"] = vlm_rank["bwd"]
     bwd = flash_bwd["shapes"]["train"]
     rgp, wkv = scans["rglru"]["legs"]["prefill"], scans["wkv"]
     # the scans' serve and train paths, each counted from 0 just before it
@@ -4583,6 +4857,17 @@ def main(argv=None) -> int:
         "serve": rec_serve[arch]["kernel_launches"],
         "train": sum(families[arch]["full"]["launches"].values())}
         for arch, kernel in FAMILY_TRAIN.items()}
+    # 12(d)'s rank paths
+    rank_runs = family_rank["runs"]
+    scan_paths["rglru_scan"]["rank train"] = sum(
+        rank_runs["recurrentgemma-2b"]["launches"]["rglru_scan"].values())
+    scan_paths["wkv6"]["rank prefill"] = rank_runs["rwkv6-1.6b"][
+        "launches"]["wkv6"]["fwd"]
+    wkv["rank"]["launches"] = scan_paths["wkv6"]["rank prefill"]
+    for leg in ("rank", "rank_reverse"):
+        scans["rglru"]["legs"][leg]["launches"] = rank_runs[
+            "recurrentgemma-2b"]["launches"]["rglru_scan"][
+            "bwd" if leg == "rank_reverse" else "fwd"]
     print(json.dumps({"kernels": [{
         "name": "rs_matmul", "route": "cuda", "source": K.SOURCE,
         "replaces": K.REPLACES, "launches": total,
@@ -4595,7 +4880,7 @@ def main(argv=None) -> int:
         "name": "flash_attention_fwd", "route": "cuda", "source": FK.SOURCE,
         "replaces": FK.REPLACES, "launches": sum(flash_paths.values()),
         "launches_by_path": flash_paths, "d128": flash["d128"],
-        "d256": flash["d256"],
+        "d256": flash["d256"], "vlm_rank": flash["vlm_rank"],
         "max_abs_err": flash["max_abs_err"], "ms": flash["ms"],
         "call_ms": flash["call_ms"], "plain_ms": flash["plain_ms"],
         "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
@@ -4608,11 +4893,12 @@ def main(argv=None) -> int:
         "replaces": FKB.REPLACES,
         "launches": (train["flash_launches"]["bwd"]
                      + mesh["train"]["flash_launches"]["bwd"]
-                     + rank["flash_launches"]["bwd"]),
+                     + rank["flash_launches"]["bwd"] + vlm_rank["bwd"]),
         "launches_by_path": {
             "train": train["flash_launches"]["bwd"],
             "mesh train": mesh["train"]["flash_launches"]["bwd"],
-            f"{RANK_ARCH} rank train": rank["flash_launches"]["bwd"]},
+            f"{RANK_ARCH} rank train": rank["flash_launches"]["bwd"],
+            f"{VLM} rank train": vlm_rank["bwd"]},
         "max_abs_err": flash_bwd["max_abs_err"], "ms": bwd["ms"],
         "call_ms": bwd["call_ms"], "plain_ms": bwd["plain_ms"],
         "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
@@ -4632,13 +4918,15 @@ def main(argv=None) -> int:
         "call_ms": rgp["call_ms"], "plain_ms": rgp["plain_ms"],
         "bound_ms": rgp["bound_ms"], "bound_by": rgp["bound_by"],
         "library_ms": None, "shape": rgp["shape"],
+        "rank_max_abs_err": family_rank["rglru_err"],
         "legs": scans["rglru"]["legs"], "floor_ms": scans["rglru"]["floor_ms"],
         "floor_call_ms": scans["rglru"]["floor_call_ms"]}, {
         "name": "wkv6", "route": "cuda", "source": WK.SOURCE,
         "replaces": WK.REPLACES,
         "launches": sum(scan_paths["wkv6"].values()),
         "launches_by_path": scan_paths["wkv6"],
-        "train": wkv["train"],
+        "train": wkv["train"], "rank": wkv["rank"],
+        "rank_max_abs_err": family_rank["wkv_err"],
         "train_backward": families["rwkv6-1.6b"]["full"]["wkv6_backward"],
         "max_abs_err": wkv["max_abs_err"], "ms": wkv["ms"],
         "call_ms": wkv["call_ms"], "plain_ms": wkv["plain_ms"],

@@ -116,11 +116,19 @@ def _backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The gradients of r, k, v, w, u (and s0, where given): autograd
     through the sequential recurrence `ref.wkv_ref`, as the reference's
     custom_vjp is `jax.vjp` of its oracle."""
-    # an op's implementation runs below autograd: torch.func's vjp
-    # differentiates there
-    ins = [x for x in (r, k, v, w, u, s0) if x is not None]
-    _, pullback = torch.func.vjp(ref.wkv_ref, *ins)
-    return list(pullback((dy, ds)))
+    # an op's implementation runs below autograd, its keys excluded: they
+    # are let through again for the recurrence (torch.func's vjp, which
+    # needs no keys, fails when the op is called under a Python dispatch
+    # mode, such as the step recorder of `roofline/collectives.py`)
+    ins = [x.detach().requires_grad_() for x in (r, k, v, w, u, s0)
+           if x is not None]
+    keys = torch._C.DispatchKey
+    with torch._C._SetExcludeDispatchKeyGuard(keys.AutogradFunctionality,
+                                              False), \
+            torch._C._SetExcludeDispatchKeyGuard(keys.ADInplaceOrView,
+                                                 False), \
+            torch.enable_grad():
+        return list(torch.autograd.grad(ref.wkv_ref(*ins), ins, (dy, ds)))
 
 
 @_backward.register_fake

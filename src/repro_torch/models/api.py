@@ -9,9 +9,11 @@
 
 Every family of the reference is ported: dense and moe (`transformer.py`,
 with `moe.py`), hybrid (`recurrent.py`), ssm (`rwkv.py`), vlm (`vlm.py`)
-and encdec (`encdec.py`). Inputs may be tensors or arrays; arrays are
-placed on the API's device, the CUDA card unless the caller asks for the
-CPU. `input_specs` gives the static buffers of the compiled steps
+and encdec (`encdec.py`). On a mesh `loss`, `prefill` and `decode` take
+each rank's local shards of the params and caches (`models.params.
+local_params`), on which every family computes, as XLA partitions the
+reference's specs. Inputs may be tensors or arrays; arrays are placed on
+the API's device, the CUDA card unless the caller asks for the CPU. `input_specs` gives the static buffers of the compiled steps
 (`train/trainer.py` `jit_*`); `cache_pspecs` and `input_pspecs` their
 specs on a mesh, the reference's, and `shardings_for` those specs fitted
 to the shapes (non-divisible dims replicated).
@@ -25,7 +27,7 @@ import torch
 
 from repro_torch.common.config import ModelConfig, ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.context import MeshCtx, gather_whole
+from repro_torch.models.context import MeshCtx
 from repro_torch.models.params import fit_spec, spec
 from repro_torch.models.transformer import CacheSpec
 
@@ -63,32 +65,15 @@ class ModelAPI:
     def param_defs(self):
         return self._m.param_defs(self.cfg)
 
-    @property
-    def shards_compute(self) -> bool:
-        """Whether the family computes on its params' local shards on a
-        mesh (the dense and moe families); the others compute on whole
-        params, replicated along "model"."""
-        return self.cfg.family in ("dense", "moe")
-
-    def _params(self, params, mctx: MeshCtx):
-        """The params the family computes with, from each rank's local
-        shards: as they are for the dense and moe families; whole for the
-        others (`gather_whole`; the next slice of the port shards them)."""
-        if self.shards_compute:
-            return params
-        return gather_whole(params, self.param_defs(), mctx)
-
     def loss(self, params, batch, mctx: MeshCtx):
         batch = {k: self._tensor(v) for k, v in batch.items()}
-        return self._m.loss_fn(self._params(params, mctx), batch, self.cfg,
-                               mctx)
+        return self._m.loss_fn(params, batch, self.cfg, mctx)
 
     def prefill(self, params, inputs: Dict[str, Any], mctx: MeshCtx):
         """Prefill on `tokens`, with the vlm's `vision_embeds` (B, N,
         d_vision) or the encdec's encoder `frames` (B, F, d_model)."""
         cfg, fam = self.cfg, self.cfg.family
         tokens = self._tensor(inputs["tokens"])
-        params = self._params(params, mctx)
         if fam == "vlm":
             return self._m.prefill(params, tokens,
                                    self._tensor(inputs["vision_embeds"]),
@@ -101,8 +86,7 @@ class ModelAPI:
     def decode(self, params, inputs: Dict[str, Any], cache, mctx: MeshCtx):
         """One decode step; the cache (or state) is updated in place and
         returned."""
-        return self._m.decode_step(self._params(params, mctx),
-                                   self._tensor(inputs["token"]),
+        return self._m.decode_step(params, self._tensor(inputs["token"]),
                                    self._tensor(inputs["pos"]), cache,
                                    self.cfg, mctx)
 
@@ -134,17 +118,13 @@ class ModelAPI:
         def kh(n):
             return "model" if (tp > 1 and n % tp == 0) else None
 
-        def sq(heads):
-            return ("model" if (heads is None and cfg.cache_seq_shard
-                                and tp > 1) else None)
-
+        sq = self.cache_seq_axis(mctx)
         if fam in ("dense", "moe"):
             if cfg.mla is not None:
-                q = "model" if (cfg.cache_seq_shard and tp > 1) else None
-                return {"ckv": spec(None, b, q, None),
-                        "krope": spec(None, b, q, None)}
+                return {"ckv": spec(None, b, sq, None),
+                        "krope": spec(None, b, sq, None)}
             heads = kh(cfg.n_kv_heads)
-            s = spec(None, b, sq(heads), heads, None)
+            s = spec(None, b, sq, heads, None)
             return {"k": s, "v": s}
         if fam == "hybrid":
             r = kh(cfg.hybrid.d_rnn or cfg.d_model)
@@ -167,13 +147,28 @@ class ModelAPI:
                     "cmix": {"shift": spec(None, b, None)}}
         heads = kh(cfg.n_kv_heads)
         if fam == "vlm":
-            s = spec(None, None, b, sq(heads), heads, None)
-            c = spec(None, b, sq(heads), heads, None)
+            s = spec(None, None, b, sq, heads, None)
+            c = spec(None, b, sq, heads, None)
             return {"self": {"k": s, "v": s}, "cross": {"k": c, "v": c}}
         if fam == "encdec":
-            s = spec(None, b, sq(heads), heads, None)
+            s = spec(None, b, sq, heads, None)
             return {"self": {"k": s, "v": s}, "cross": {"k": s, "v": s}}
         raise ValueError(fam)
+
+    def cache_seq_axis(self, mctx: MeshCtx):
+        """"model" where `cache_pspecs` shards the KV caches' sequence dim
+        over it (`cache_seq_shard`, where the kv heads cannot take it, and
+        MLA's latent cache, which has no head dim), else None. A rank
+        computes on its local shards of every cache leaf, except where
+        the sequence is sharded: there the cache is gathered along
+        "model" and the rank's shard written back."""
+        cfg = self.cfg
+        if (cfg.family in ("hybrid", "ssm") or not cfg.cache_seq_shard
+                or mctx.tp_size() <= 1):
+            return None
+        if cfg.mla is None and cfg.n_kv_heads % mctx.tp_size() == 0:
+            return None
+        return "model"
 
     def input_pspecs(self, mctx: MeshCtx, shape: ShapeConfig):
         """Specs of `input_specs(shape)`: every input's batch over the data

@@ -11,10 +11,10 @@ With a mesh (`make_mesh`, a torch `DeviceMesh` over an initialised
 process group) params, moments, batches and caches are DTensors placed by
 the rules' specs (`models/params.py`), and `constraint` redistributes a
 DTensor to the placements of a spec. The model code runs on each rank's
-local tensors: its batch shard, and the dense and moe families on their
-params' local shards, which is what XLA's SPMD partitioner makes of the
-reference's specs (the Megatron layout): heads, mlp columns, vocab and
-experts over "model", the fsdp dim over "data". The collectives between
+local tensors: its batch shard and its params' local shards, in every
+family, which is what XLA's SPMD partitioner makes of the reference's
+specs (the Megatron layout): heads, mlp columns, recurrent channels,
+vocab and experts over "model", the fsdp dim over "data". The collectives between
 them are explicit, as autograd Functions on `MeshCtx.group`:
 
     copy_to_model      identity forward, all-reduce over "model" backward
@@ -24,10 +24,10 @@ them are explicit, as autograd Functions on `MeshCtx.group`:
     gather_fsdp        all-gather over "data" forward, reduce-scatter back
 
 Each returns its input untouched without a mesh or on a group of one
-rank, so the one-device path and a one-rank mesh run the same ops. The
-other families still compute on whole params (`gather_whole`), and the
-reference's own shard_map regions (`moe_ffn`, `gpipe_forward`) are
-explicit per-rank code over the mesh's groups. A mesh may also be a
+rank, so the one-device path and a one-rank mesh run the same ops. No
+param is gathered whole; the reference's own shard_map regions
+(`moe_ffn`, `gpipe_forward`) are explicit per-rank code over the mesh's
+groups. A mesh may also be a
 `MeshShape` (names and sizes only), on which the spec functions run but
 nothing can be placed.
 """
@@ -44,9 +44,8 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.params import (DEFAULT_RULES, MeshShape, Spec,
-                                       _mesh_axes_size, _names, fit_spec,
-                                       mesh_shape, param_pspecs, placements,
-                                       spec, tree_map)
+                                       _mesh_axes_size, fit_spec,
+                                       mesh_shape, placements, spec)
 
 ONE_DEVICE = MeshShape(("data", "model"), (1, 1))
 
@@ -288,24 +287,3 @@ def gather_fsdp(w: torch.Tensor, dim: int, mctx: Optional[MeshCtx],
     if group is None or (whole is not None and w.shape[dim] >= whole):
         return w
     return _GatherFSDP.apply(w, dim, group)
-
-
-def gather_whole(params, defs, mctx: Optional[MeshCtx]):
-    """Each param whole on every rank, from its local shard at its
-    `param_pspecs` spec: gathered over "model" (`gather_from_model`) and
-    over "data" (`gather_fsdp`) where the spec shards it. For the families
-    that still run their compute replicated along "model" (the hybrid,
-    ssm, vlm and encdec families), whose gradients are then the same on
-    every model rank."""
-    if mctx is None or mctx.device_mesh is None:
-        return params
-
-    def one(t, s):
-        for dim, axes in enumerate(s):
-            names = _names(axes)
-            if "model" in names:
-                t = gather_from_model(t, dim, mctx)
-            if "data" in names:
-                t = gather_fsdp(t, dim, mctx)
-        return t
-    return tree_map(one, params, param_pspecs(defs, mctx.mesh, mctx.rules))

@@ -9,6 +9,18 @@ takes the plain path (the reference passes `L.attention` no `impl`), so
 the family reaches no kernel. The stacked `enc` and `dec` layer params are
 walked by Python loops in place of `lax.scan`; decode writes the self
 caches in place and returns the cache.
+
+On a mesh each rank computes on its params' local shards, as XLA
+partitions the reference's specs. Attention takes its q heads over
+"model" where they divide the model ranks (the kv heads too where they
+do; where they do not, each rank projects them whole and takes those its
+q heads use) and is row-parallel out, summed over "model"; where the
+heads do not divide it runs replicated. The MLP is column-parallel in
+(`w_in`, `b_in`) and row-parallel out (`w_out`), its `b_out` added once,
+after the sum. The embedding and the tied logits are vocab-parallel
+where the vocab divides, else replicated. fsdp leaves are gathered over
+"data" inside the layer, and the caches hold the kv heads each rank's
+spec gives it.
 """
 from __future__ import annotations
 
@@ -21,8 +33,12 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models.context import (MeshCtx, copy_to_model, gather_fsdp,
+                                        reduce_from_model)
 from repro_torch.models.params import pdef
-from repro_torch.models.transformer import CacheSpec, _embed_in, _layer, _proj
+from repro_torch.models.transformer import (CacheSpec, _embed_in, _kv_heads,
+                                            _layer, _proj, _unembed,
+                                            _whole_logits)
 
 
 def _attn_defs(cfg, n):
@@ -83,50 +99,95 @@ def _sinusoid(positions: torch.Tensor, d: int) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).float()
 
 
-def _mha(x, p, positions=None, kv=None, causal=True, cache=None, pos=None):
-    """Self- or cross-attention. kv: the cross layer's keys and values."""
+def _mha(x, p, cfg: ModelConfig, mctx: MeshCtx = None, positions=None,
+         kv=None, causal=True, cache=None, pos=None):
+    """Self- or cross-attention. kv: the cross layer's keys and values,
+    the kv heads this rank's spec gives it."""
     cdt = x.dtype
-    q = _proj(x, p["w_q"])
+    d = cfg.d_model
+    w_q = gather_fsdp(p["w_q"], 0, mctx, d)
+    hl = w_q.shape[1]
+    heads = hl < cfg.n_heads           # q heads over "model"
+    if heads:
+        x = copy_to_model(x, mctx)
+    q = _proj(x, w_q)
+
+    def used(k, v):
+        """k, v cut to the kv heads this rank's q heads use, where every
+        rank holds them all."""
+        if heads and k.shape[2] == cfg.n_kv_heads:
+            return _kv_heads(k, v, cfg, hl, mctx)
+        return k, v
+    new_cache = None
     if kv is not None:                       # cross: precomputed k/v
-        k, v = kv
-        out = L.cross_attention(q, k, v)
-        new_cache = None
-    elif cache is None:                      # self-attention (train/prefill)
-        k, v = _proj(x, p["w_k"]), _proj(x, p["w_v"])
-        out = L.attention(q, k, v, q_positions=positions,
-                          kv_positions=positions, causal=causal)
-        new_cache = {"k": k, "v": v}
-    else:                                    # decode
-        k, v = _proj(x, p["w_k"]), _proj(x, p["w_v"])
-        B = x.shape[0]
-        ck, cv = cache["k"], cache["v"]
-        rows = torch.arange(B, device=x.device)
-        ck[rows, pos] = k[:, 0].to(ck.dtype)
-        cv[rows, pos] = v[:, 0].to(cv.dtype)
-        S = ck.shape[1]
-        out = L.attention(q, ck.to(cdt), cv.to(cdt),
-                          q_positions=torch.zeros((1,), dtype=torch.int32,
-                                                  device=x.device),
-                          kv_positions=torch.arange(S, device=x.device),
-                          causal=False, kv_len=pos + 1, chunk=S)
-        new_cache = {"k": ck, "v": cv}
-    H, hd, d = p["w_o"].shape
-    out = out.reshape(*out.shape[:2], H * hd) @ p["w_o"].reshape(
-        H * hd, d).to(cdt)
-    return out, new_cache
+        out = L.cross_attention(q, *used(*kv))
+    else:
+        w_k, w_v = (gather_fsdp(p[k], 0, mctx, d) for k in ("w_k", "w_v"))
+        if heads and w_k.shape[1] == cfg.n_kv_heads:
+            # kv heads whole: shared by ranks
+            w_k, w_v = copy_to_model(w_k, mctx), copy_to_model(w_v, mctx)
+        k, v = _proj(x, w_k), _proj(x, w_v)
+        if cache is None:                    # self-attention (train/prefill)
+            out = L.attention(q, *used(k, v), q_positions=positions,
+                              kv_positions=positions, causal=causal)
+            new_cache = {"k": k, "v": v}
+        else:                                # decode
+            B = x.shape[0]
+            ck, cv = cache["k"], cache["v"]
+            rows = torch.arange(B, device=x.device)
+            ck[rows, pos] = k[:, 0].to(ck.dtype)
+            cv[rows, pos] = v[:, 0].to(cv.dtype)
+            S = ck.shape[1]
+            out = L.attention(q, *used(ck.to(cdt), cv.to(cdt)),
+                              q_positions=torch.zeros((1,), dtype=torch.int32,
+                                                      device=x.device),
+                              kv_positions=torch.arange(S, device=x.device),
+                              causal=False, kv_len=pos + 1, chunk=S)
+            new_cache = {"k": ck, "v": cv}
+    w_o = gather_fsdp(p["w_o"], 2, mctx, d)
+    H, hd, _ = w_o.shape
+    out = out.reshape(*out.shape[:2], H * hd) @ w_o.reshape(H * hd, d).to(cdt)
+    return (reduce_from_model(out, mctx) if heads else out), new_cache
 
 
-def _mlp(x, p):
+def _cross_kv(enc_out, p, cfg: ModelConfig, mctx: MeshCtx = None):
+    """A cross layer's k, v from the encoder output: the kv heads this
+    rank's `w_k`, `w_v` hold."""
+    d = cfg.d_model
+    w_k, w_v = (gather_fsdp(p[k], 0, mctx, d) for k in ("w_k", "w_v"))
+    if p["w_q"].shape[1] < cfg.n_heads:
+        # the whole inputs feed this rank's heads: their gradients are
+        # the ranks' parts
+        enc_out = copy_to_model(enc_out, mctx)
+        if w_k.shape[1] == cfg.n_kv_heads:
+            w_k, w_v = copy_to_model(w_k, mctx), copy_to_model(w_v, mctx)
+    return _proj(enc_out, w_k), _proj(enc_out, w_v)
+
+
+def _mlp(x, p, cfg: ModelConfig, mctx: MeshCtx = None):
+    """GELU MLP with biases: column-parallel in, row-parallel out where
+    the hidden columns are over "model", `b_out` added once after the
+    ranks' partial outputs are summed."""
     cdt = x.dtype
-    h = F.gelu(x @ p["w_in"].to(cdt) + p["b_in"].to(cdt), approximate="tanh")
-    return h @ p["w_out"].to(cdt) + p["b_out"].to(cdt)
+    d = cfg.d_model
+    w_in = gather_fsdp(p["w_in"], 0, mctx, d)
+    w_out = gather_fsdp(p["w_out"], 1, mctx, d)
+    cols = w_in.shape[-1] < cfg.d_ff
+    if cols:
+        x = copy_to_model(x, mctx)
+    h = F.gelu(x @ w_in.to(cdt) + p["b_in"].to(cdt), approximate="tanh")
+    out = h @ w_out.to(cdt)
+    if cols:
+        out = reduce_from_model(out, mctx)
+    return out + p["b_out"].to(cdt)
 
 
-def _enc_block(h, bp, positions):
-    a, _ = _mha(L.layer_norm(h, bp["ln1_w"], bp["ln1_b"]), bp["attn"],
-                positions=positions, causal=False)
+def _enc_block(h, bp, cfg, mctx, positions):
+    a, _ = _mha(L.layer_norm(h, bp["ln1_w"], bp["ln1_b"]), bp["attn"], cfg,
+                mctx, positions=positions, causal=False)
     h = h + a
-    return h + _mlp(L.layer_norm(h, bp["ln2_w"], bp["ln2_b"]), bp["mlp"])
+    return h + _mlp(L.layer_norm(h, bp["ln2_w"], bp["ln2_b"]), bp["mlp"],
+                    cfg, mctx)
 
 
 def encode(params, frames, cfg: ModelConfig, mctx):
@@ -140,32 +201,32 @@ def encode(params, frames, cfg: ModelConfig, mctx):
     for i in range(cfg.encdec.n_enc_layers):
         bp = _layer(params["enc"], i)
         if remat:
-            x = checkpoint(_enc_block, x, bp, positions, use_reentrant=False,
-                           preserve_rng_state=False)
+            x = checkpoint(_enc_block, x, bp, cfg, mctx, positions,
+                           use_reentrant=False, preserve_rng_state=False)
         else:
-            x = _enc_block(x, bp, positions)
+            x = _enc_block(x, bp, cfg, mctx, positions)
         if mctx is not None:
             x = mctx.constraint(x, mctx.batch_spec(None, None))
     return L.layer_norm(x, params["ln_enc_w"], params["ln_enc_b"])
 
 
-def _dec_block(h, bp, positions, enc_out, c_self, c_cross, pos):
+def _dec_block(h, bp, cfg, mctx, positions, enc_out, c_self, c_cross, pos):
     cdt = h.dtype
     a, new_self = _mha(L.layer_norm(h, bp["ln1_w"], bp["ln1_b"]),
-                       bp["self_attn"], positions=positions, cache=c_self,
-                       pos=pos)
+                       bp["self_attn"], cfg, mctx, positions=positions,
+                       cache=c_self, pos=pos)
     h = h + a
     if c_cross is not None:
         kv = (c_cross["k"].to(cdt), c_cross["v"].to(cdt))
         new_cross = c_cross
     else:
-        kv = (_proj(enc_out, bp["cross_attn"]["w_k"]),
-              _proj(enc_out, bp["cross_attn"]["w_v"]))
+        kv = _cross_kv(enc_out, bp["cross_attn"], cfg, mctx)
         new_cross = {"k": kv[0], "v": kv[1]}
     a, _ = _mha(L.layer_norm(h, bp["ln2_w"], bp["ln2_b"]), bp["cross_attn"],
-                kv=kv)
+                cfg, mctx, kv=kv)
     h = h + a
-    h = h + _mlp(L.layer_norm(h, bp["ln3_w"], bp["ln3_b"]), bp["mlp"])
+    h = h + _mlp(L.layer_norm(h, bp["ln3_w"], bp["ln3_b"]), bp["mlp"], cfg,
+                 mctx)
     return h, {"self": new_self, "cross": new_cross}
 
 
@@ -173,8 +234,9 @@ def _decoder(params, tokens, enc_out, cfg, mctx, collect_cache=False,
              cache=None, pos=None):
     """The decoder over tokens (B,T): from the encoder output (train and
     prefill), or one step from the cache at positions `pos` (decode).
-    Returns (logits (B,T,V), the stacked caches or None)."""
-    x = _embed_in(params, tokens, cfg)
+    Returns (logits (B,T,V), the stacked caches or None); on a mesh with
+    the vocab over "model", this rank's block of the logits."""
+    x = _embed_in(params, tokens, cfg, mctx)
     cdt = x.dtype
     T = tokens.shape[1]
     positions = torch.arange(T, device=x.device)
@@ -189,16 +251,17 @@ def _decoder(params, tokens, enc_out, cfg, mctx, collect_cache=False,
             c_self = _layer(cache["self"], i)
             c_cross = _layer(cache["cross"], i)
         if remat:
-            x, c = checkpoint(_dec_block, x, bp, positions, enc_out, None,
-                              None, None, use_reentrant=False,
+            x, c = checkpoint(_dec_block, x, bp, cfg, mctx, positions,
+                              enc_out, None, None, None, use_reentrant=False,
                               preserve_rng_state=False)
         else:
-            x, c = _dec_block(x, bp, positions, enc_out, c_self, c_cross, pos)
+            x, c = _dec_block(x, bp, cfg, mctx, positions, enc_out, c_self,
+                              c_cross, pos)
         if mctx is not None:
             x = mctx.constraint(x, mctx.batch_spec(None, None))
         caches.append(c)
     x = L.layer_norm(x, params["ln_dec_w"], params["ln_dec_b"])
-    logits = x @ params["embed"].to(cdt).T
+    logits = _unembed(params, x, cfg, mctx)
     if mctx is not None:
         logits = mctx.constraint(logits, mctx.batch_spec(None, "model"))
     if cache is not None:
@@ -214,7 +277,8 @@ def _decoder(params, tokens, enc_out, cfg, mctx, collect_cache=False,
 def loss_fn(params, batch, cfg, mctx):
     enc_out = encode(params, batch["frames"], cfg, mctx)
     logits, _ = _decoder(params, batch["tokens"], enc_out, cfg, mctx)
-    return L.softmax_xent(logits, batch["labels"], batch.get("mask"))
+    return L.softmax_xent(logits, batch["labels"], batch.get("mask"),
+                          mctx if logits.shape[-1] < cfg.vocab else None)
 
 
 def cache_spec(cfg: ModelConfig, batch: int, max_len: int, n_frames: int,
@@ -237,7 +301,7 @@ def prefill(params, frames, tokens, cfg, mctx):
     enc_out = encode(params, frames, cfg, mctx)
     logits, caches = _decoder(params, tokens, enc_out, cfg, mctx,
                               collect_cache=True)
-    return logits[:, -1], caches
+    return _whole_logits(logits[:, -1], cfg, mctx), caches
 
 
 def decode_step(params, token, pos, cache, cfg, mctx):
@@ -245,4 +309,4 @@ def decode_step(params, token, pos, cache, cfg, mctx):
     updated in place."""
     logits, cache = _decoder(params, token[:, None], None, cfg, mctx,
                              cache=cache, pos=pos)
-    return logits[:, 0], cache
+    return _whole_logits(logits[:, 0], cfg, mctx), cache

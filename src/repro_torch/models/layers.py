@@ -261,6 +261,15 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
 # ---------------------------------------------------------------------------
 # KV cache helpers
 
+def last_positions(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x[:, -n:] of a (B, T, ...) tensor, a copy where x holds more
+    positions: a view would keep the whole sequence's storage alive for as
+    long as the state holding it (a prefill keeps every layer's state
+    until it stacks them)."""
+    tail = x[:, -n:]
+    return tail.clone() if x.shape[1] > n else tail
+
+
 def cache_update(cache_k: torch.Tensor, cache_v: torch.Tensor,
                  k: torch.Tensor, v: torch.Tensor, pos: int):
     """Write k,v (B, t, KH, D) into copies of the caches at position pos

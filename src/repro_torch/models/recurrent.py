@@ -14,6 +14,19 @@ attn_impl="flash" the recurrent blocks scan through the `rglru_scan`
 kernel; the local attention keeps the plain chunked path in both modes,
 as the reference passes it no `impl`. Decode updates the state in place
 and returns it (the reference donates it).
+
+On a mesh each rank computes on its params' local shards, as XLA
+partitions the reference's specs. The recurrent mixer is column-parallel
+over its `rnn` channels (`w_in`, `w_gate_in`, the depthwise conv, `lam`
+and the gate columns of `w_a`, `w_x`), whose gates read the whole conv
+output (gathered over "model"), scans its local channels and is
+row-parallel out (`w_out`, summed over "model"); its state holds the
+local channels. The local attention shards its q heads where they divide
+the model ranks (each rank projects the kv heads whole and takes those
+its heads use, as `transformer._gqa` does), else runs replicated; the MLP
+is `layers.sharded_mlp`, the embedding and the tied logits vocab-parallel
+(`transformer._embed_in`, `_unembed`). fsdp leaves are gathered over
+"data" inside the layer.
 """
 from __future__ import annotations
 
@@ -27,9 +40,13 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.common.config import ModelConfig
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 from repro_torch.models import layers as L
-from repro_torch.models.context import MeshCtx
+from repro_torch.models.context import (MeshCtx, copy_to_model,
+                                        gather_fsdp, gather_from_model,
+                                        reduce_from_model)
 from repro_torch.models.params import pdef, tree_map
-from repro_torch.models.transformer import CacheSpec, _embed_in, _layer, _proj
+from repro_torch.models.transformer import (CacheSpec, _embed_in, _kv_heads,
+                                            _layer, _proj, _unembed,
+                                            _whole_logits)
 
 C_LRU = 8.0  # Griffin's fixed recurrence sharpness
 
@@ -125,15 +142,22 @@ def _conv1d(u, conv_w, conv_b, tail=None):
     out = up[:, 0:T] * conv_w[w - 1].to(u.dtype)
     for i in range(1, w):
         out = out + up[:, i:i + T] * conv_w[w - 1 - i].to(u.dtype)
-    new_tail = up[:, -(w - 1):] if w > 1 else None
+    new_tail = L.last_positions(up, w - 1) if w > 1 else None
     return out + conv_b.to(u.dtype), new_tail
 
 
-def _lru_gates(xt, p):
-    """a (decay) and gated input, float32. xt (B,T,R)."""
+def _lru_gates(xt, p, mctx: MeshCtx = None):
+    """a (decay) and gated input, float32. xt (B,T,R), the local channels
+    on a mesh: the gate columns of `w_a` and `w_x` that a rank holds read
+    every channel, so xt is gathered whole over "model" for them."""
     xf = xt.float()
-    rt = torch.sigmoid(xf @ p["w_a"].float())
-    it = torch.sigmoid(xf @ p["w_x"].float())
+    if p["w_a"].shape[-1] < p["w_a"].shape[0]:       # channels over "model"
+        # each rank's gradient of the whole is the part its columns give
+        xw = copy_to_model(gather_from_model(xf, -1, mctx), mctx)
+    else:
+        xw = xf
+    rt = torch.sigmoid(xw @ p["w_a"].float())
+    it = torch.sigmoid(xw @ p["w_x"].float())
     lam = p["lam"].float()
     # jax.nn.softplus is logaddexp(x, 0), with no linear cut-off
     log_a = -C_LRU * torch.logaddexp(lam, torch.zeros_like(lam)) * rt
@@ -148,14 +172,20 @@ def _lru_scan(a, b, h0=None):
     return rglru_scan_ref(a, b, h0)
 
 
-def _rec_mix(x, p, cfg: ModelConfig, state=None):
+def _rec_mix(x, p, cfg: ModelConfig, mctx: MeshCtx = None, state=None):
     """Recurrent (RG-LRU) temporal mixing. Returns (out, new_state)."""
     cdt = x.dtype
-    u = x @ p["w_in"].to(cdt)
-    gate = F.gelu(x @ p["w_gate_in"].to(cdt), approximate="tanh")
+    d = cfg.d_model
+    w_in, w_gate_in = (gather_fsdp(p[k], 0, mctx, d)
+                       for k in ("w_in", "w_gate_in"))
+    rnn = w_in.shape[-1] < (cfg.hybrid.d_rnn or d)    # channels over "model"
+    if rnn:
+        x = copy_to_model(x, mctx)
+    u = x @ w_in.to(cdt)
+    gate = F.gelu(x @ w_gate_in.to(cdt), approximate="tanh")
     tail = state["conv"] if state is not None else None
     u, new_tail = _conv1d(u, p["conv_w"], p["conv_b"], tail)
-    a, b = _lru_gates(u, p)
+    a, b = _lru_gates(u, p, mctx)
     h0 = state["h"] if state is not None else None
     if cfg.attn_impl == "flash":
         # "flash" selects the kernel suite model-wide; for the recurrent
@@ -164,27 +194,42 @@ def _rec_mix(x, p, cfg: ModelConfig, state=None):
         h = rglru_scan(a, b, h0)
     else:
         h = _lru_scan(a, b, h0)
-    out = (h.to(cdt) * gate) @ p["w_out"].to(cdt)
-    return out, {"h": h[:, -1], "conv": new_tail}
+    out = (h.to(cdt) * gate) @ gather_fsdp(p["w_out"], 1, mctx, d).to(cdt)
+    return ((reduce_from_model(out, mctx) if rnn else out),
+            {"h": L.last_positions(h, 1)[:, 0], "conv": new_tail})
 
 
-def _local_attn_mix(x, p, cfg: ModelConfig, positions, state=None, pos=None):
+def _local_attn_mix(x, p, cfg: ModelConfig, positions, mctx: MeshCtx = None,
+                    state=None, pos=None):
     """Local MQA with a rolling-window cache. Returns (out, new_state).
 
     Prefill (state None) runs the plain chunked attention within the
     window and returns the last W positions' k, v and positions, entry p
     at slot p % W. Decode writes this step's k, v and position at slot
-    pos % W of the state in place and attends over the valid slots."""
+    pos % W of the state in place and attends over the valid slots. On a
+    mesh the q heads are this rank's where they divide the model ranks,
+    and the state holds the kv heads its spec gives this rank."""
     cdt = x.dtype
+    d = cfg.d_model
     W = cfg.hybrid.attn_window
-    q = _proj(x, p["w_q"])
-    k = _proj(x, p["w_k"])
-    v = _proj(x, p["w_v"])
+    w_q, w_k, w_v = (gather_fsdp(p[k], 0, mctx, d)
+                     for k in ("w_q", "w_k", "w_v"))
+    hl, khl = w_q.shape[1], w_k.shape[1]
+    heads = hl < cfg.n_heads           # q heads over "model"
+    if heads:
+        x = copy_to_model(x, mctx)
+        if khl == cfg.n_kv_heads:      # kv heads whole: shared by ranks
+            w_k, w_v = copy_to_model(w_k, mctx), copy_to_model(w_v, mctx)
+    q = _proj(x, w_q)
+    k = _proj(x, w_k)
+    v = _proj(x, w_v)
     cos, sin = L.rope_freqs(positions, cfg.head_dim, cfg.rope_theta)
     q = L.apply_rope(q, cos, sin)
     k = L.apply_rope(k, cos, sin)
+    select = heads and khl == cfg.n_kv_heads
     if state is None:
-        out = L.attention(q, k, v, q_positions=positions,
+        ka, va = _kv_heads(k, v, cfg, hl, mctx) if select else (k, v)
+        out = L.attention(q, ka, va, q_positions=positions,
                           kv_positions=positions, causal=True, window=W)
         B, T = x.shape[0], x.shape[1]
         kpos = positions.to(torch.int32).expand(B, T)
@@ -213,38 +258,40 @@ def _local_attn_mix(x, p, cfg: ModelConfig, positions, state=None, pos=None):
         ck[rows, slot] = k[:, 0].to(ck.dtype)
         cv[rows, slot] = v[:, 0].to(cv.dtype)
         cp[rows, slot] = pos.to(torch.int32)
+        ka, va = ck.to(cdt), cv.to(cdt)
+        if select:
+            ka, va = _kv_heads(ka, va, cfg, hl, mctx)
         # mask: within window and not in the future
         valid = (cp <= pos[:, None]) & (cp > (pos - W)[:, None])   # (B, W)
-        H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        qg = q.reshape(B, 1, KH, H // KH, D)
+        KH, D = ka.shape[2], cfg.head_dim
+        qg = q.reshape(B, 1, KH, hl // KH, D)
         # products of the compute dtype summed in float32, as the
         # reference's preferred_element_type=float32
         s = torch.einsum("btkgd,bskd->bkgts", qg.float(),
-                         ck.to(cdt).float()) / math.sqrt(D)
+                         ka.float()) / math.sqrt(D)
         s = torch.where(valid[:, None, None, None, :], s,
                         torch.full((), -1e30, dtype=s.dtype, device=s.device))
         w_ = torch.softmax(s, dim=-1).to(cdt)
-        out = torch.einsum("bkgts,bskd->btkgd", w_, cv.to(cdt))
-        out = out.reshape(B, 1, H, D)
+        out = torch.einsum("bkgts,bskd->btkgd", w_, va)
+        out = out.reshape(B, 1, hl, D)
         new_state = {"k": ck, "v": cv, "kpos": cp}
-    H, hd, d = p["w_o"].shape
-    out = out.reshape(*out.shape[:2], H * hd) @ p["w_o"].reshape(
-        H * hd, d).to(cdt)
-    return out, new_state
+    w_o = gather_fsdp(p["w_o"], 2, mctx, d)
+    H, hd, _ = w_o.shape
+    out = out.reshape(*out.shape[:2], H * hd) @ w_o.reshape(H * hd, d).to(cdt)
+    return (reduce_from_model(out, mctx) if heads else out), new_state
 
 
 def _block(x, bp, cfg: ModelConfig, mctx: MeshCtx, kind: str, positions,
            state=None, pos=None):
     h = L.rms_norm(x, bp["ln_mix"], cfg.rms_eps)
     if kind == "rec":
-        mix, new_state = _rec_mix(h, bp["mix"], cfg, state)
+        mix, new_state = _rec_mix(h, bp["mix"], cfg, mctx, state)
     else:
-        mix, new_state = _local_attn_mix(h, bp["mix"], cfg, positions, state,
-                                         pos)
+        mix, new_state = _local_attn_mix(h, bp["mix"], cfg, positions, mctx,
+                                         state, pos)
     x = x + mix
     h = L.rms_norm(x, bp["ln_mlp"], cfg.rms_eps)
-    x = x + L.mlp(h, {k: v.to(x.dtype) for k, v in bp["mlp"].items()},
-                  cfg.act)
+    x = x + L.sharded_mlp(h, bp["mlp"], cfg.act, cfg.d_ff, mctx)
     if mctx is not None:
         x = mctx.constraint(x, mctx.batch_spec(None, None))
     return x, new_state
@@ -270,11 +317,12 @@ def _tail_block(x, rp, cfg: ModelConfig, mctx: MeshCtx, positions):
 
 def forward(params, tokens, cfg: ModelConfig, mctx: MeshCtx,
             collect_state: bool = False):
-    """tokens (B,T) -> logits (B,T,V) [+ the stacked state]. With
+    """tokens (B,T) -> logits (B,T,V) [+ the stacked state]; on a mesh
+    with the vocab over "model", this rank's block of the logits. With
     cfg.remat, each super-block and each trailing block keeps only its
     input for the backward while grad is enabled (the reference's
     jax.checkpoint over its scan bodies)."""
-    x = _embed_in(params, tokens, cfg)
+    x = _embed_in(params, tokens, cfg, mctx)
     positions = torch.arange(tokens.shape[1], device=x.device)
     n_super, n_tail = pattern(cfg)
     remat = cfg.remat and torch.is_grad_enabled()
@@ -293,7 +341,7 @@ def forward(params, tokens, cfg: ModelConfig, mctx: MeshCtx,
         x, st = run(_tail_block, x, _layer(params["tail"], i))
         tails.append(st)
     x = L.rms_norm(x, params["ln_f"], cfg.rms_eps)
-    logits = x @ params["embed"].to(x.dtype).T
+    logits = _unembed(params, x, cfg, mctx)
     if mctx is not None:
         logits = mctx.constraint(logits, mctx.batch_spec(None, "model"))
     if not collect_state:
@@ -307,7 +355,8 @@ def forward(params, tokens, cfg: ModelConfig, mctx: MeshCtx,
 
 def loss_fn(params, batch, cfg: ModelConfig, mctx: MeshCtx):
     logits = forward(params, batch["tokens"], cfg, mctx)
-    return L.softmax_xent(logits, batch["labels"], batch.get("mask"))
+    return L.softmax_xent(logits, batch["labels"], batch.get("mask"),
+                          mctx if logits.shape[-1] < cfg.vocab else None)
 
 
 def state_spec(cfg: ModelConfig, batch: int,
@@ -336,7 +385,7 @@ def state_spec(cfg: ModelConfig, batch: int,
 def prefill(params, tokens, cfg: ModelConfig, mctx: MeshCtx):
     """Returns (last-token logits (B,V), stacked state)."""
     logits, state = forward(params, tokens, cfg, mctx, collect_state=True)
-    return logits[:, -1], state
+    return _whole_logits(logits[:, -1], cfg, mctx), state
 
 
 def _write_back(dst, src) -> None:
@@ -347,7 +396,7 @@ def _write_back(dst, src) -> None:
 def decode_step(params, token, pos, state, cfg: ModelConfig, mctx: MeshCtx):
     """token (B,), pos (B,) -> (logits (B,V), state), the state updated in
     place and returned."""
-    x = _embed_in(params, token[:, None], cfg)
+    x = _embed_in(params, token[:, None], cfg, mctx)
     positions = pos[:, None]
     n_super, n_tail = pattern(cfg)
     for i in range(n_super):
@@ -366,5 +415,5 @@ def decode_step(params, token, pos, state, cfg: ModelConfig, mctx: MeshCtx):
                         positions, state=rst, pos=pos)
         _write_back(rst, new)
     x = L.rms_norm(x, params["ln_f"], cfg.rms_eps)
-    logits = (x @ params["embed"].to(x.dtype).T)[:, 0]
-    return logits, state
+    return _whole_logits(_unembed(params, x, cfg, mctx)[:, 0], cfg,
+                         mctx), state

@@ -13,6 +13,20 @@ A decode step (T = 1 with a state) takes `wkv_decode` and no kernel, as in
 the reference. The stacked layer params and states keep the reference's
 layout (layer axis first), walked by a Python loop in place of `lax.scan`;
 decode updates the state in place and returns it.
+
+On a mesh each rank computes on its params' local shards, as XLA
+partitions the reference's specs. The time mix is column-parallel over
+its `rnn` channels, a whole number of heads a rank (`w_r`, `w_k`, `w_v`,
+`w_g`), runs the WKV and the per-head group norm on the local heads and
+is row-parallel out (`w_o`, summed over "model"); the token-shift mixes
+and the decay's LoRA are computed whole on every rank, and the
+replicated per-channel params a rank uses only in part (`decay_w2`,
+`decay_base`, `bonus`, `ln_x_w`, `ln_x_b`) take their gradient summed
+over "model" (`copy_to_model`) before their local columns are cut. The
+channel mix is column-, then row-parallel over `mlp` (`w_k`, `w_v`),
+with its `w_r` gate computed whole. The WKV state holds the local heads;
+the embedding and the tied logits are vocab-parallel. fsdp leaves are
+gathered over "data" inside the layer.
 """
 from __future__ import annotations
 
@@ -25,7 +39,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.common.config import ModelConfig
 from repro_torch.kernels.rwkv6_scan import ref as wkv_ref
 from repro_torch.models import layers as L
-from repro_torch.models.context import MeshCtx
+from repro_torch.models import transformer as tr
+from repro_torch.models.context import (MeshCtx, copy_to_model, gather_fsdp,
+                                        reduce_from_model)
 from repro_torch.models.params import pdef, tree_map
 from repro_torch.models.transformer import CacheSpec, _layer
 
@@ -117,12 +133,17 @@ def _token_shift(x, prev=None):
     return torch.cat([pad, x[:, :-1]], dim=1)
 
 
-def _time_mix(x, p, cfg: ModelConfig, state=None, seq_mode="chunked"):
+def _time_mix(x, p, cfg: ModelConfig, mctx: MeshCtx = None, state=None,
+              seq_mode="chunked"):
     cdt = x.dtype
     rw = cfg.rwkv
     hd = rw.head_dim
     B, T, D = x.shape
-    H = D // hd
+    w_r, w_k, w_v, w_g = (gather_fsdp(p[k], 0, mctx, D)
+                          for k in ("w_r", "w_k", "w_v", "w_g"))
+    C = w_r.shape[-1]                  # this rank's channels
+    H = C // hd
+    rnn = C < D                        # heads over "model"
     prev = state["shift"] if state is not None else None
     xp = _token_shift(x, prev)
     dx = xp - x
@@ -131,60 +152,84 @@ def _time_mix(x, p, cfg: ModelConfig, state=None, seq_mode="chunked"):
     mixk = torch.einsum("btfr,frd->btfd", mixk, p["mix_w2"].to(cdt))
     xz = x[:, :, None, :] + dx[:, :, None, :] * (p["mu"].to(cdt) + mixk)
     xr, xw, xk, xv, xg = (xz[:, :, i] for i in range(5))
+    hid = torch.tanh(xw.float() @ p["decay_w1"].float())
+    per_channel = [p[k] for k in ("decay_w2", "decay_base", "ln_x_w",
+                                  "ln_x_b")]
+    bonus = p["bonus"]
+    if rnn:
+        # the whole inputs feed this rank's heads, and the replicated
+        # per-channel params are cut to them: their gradients are the
+        # ranks' parts
+        xr, xk, xv, xg, hid = (copy_to_model(t, mctx)
+                               for t in (xr, xk, xv, xg, hid))
+        c0 = mctx.coordinate("model") * C
+        per_channel = [copy_to_model(t, mctx).narrow(-1, c0, C)
+                       for t in per_channel]
+        bonus = copy_to_model(bonus, mctx).narrow(0, c0 // hd, H)
+    decay_w2, decay_base, ln_x_w, ln_x_b = per_channel
 
-    r = (xr @ p["w_r"].to(cdt)).reshape(B, T, H, hd)
-    kk = (xk @ p["w_k"].to(cdt)).reshape(B, T, H, hd)
-    vv = (xv @ p["w_v"].to(cdt)).reshape(B, T, H, hd)
-    g = F.silu(xg @ p["w_g"].to(cdt))
-    dlog = p["decay_base"].float() + (
-        torch.tanh(xw.float() @ p["decay_w1"].float()) @ p["decay_w2"].float())
+    r = (xr @ w_r.to(cdt)).reshape(B, T, H, hd)
+    kk = (xk @ w_k.to(cdt)).reshape(B, T, H, hd)
+    vv = (xv @ w_v.to(cdt)).reshape(B, T, H, hd)
+    g = F.silu(xg @ w_g.to(cdt))
+    dlog = decay_base.float() + hid @ decay_w2.float()
     w = torch.exp(-torch.exp(dlog)).reshape(B, T, H, hd)          # (0,1)
 
     s0 = state["s"] if state is not None else None
     if T == 1 and state is not None:
-        y, s_new = wkv_decode(r[:, 0], kk[:, 0], vv[:, 0], w[:, 0],
-                              p["bonus"], s0)
+        y, s_new = wkv_decode(r[:, 0], kk[:, 0], vv[:, 0], w[:, 0], bonus,
+                              s0)
         y = y[:, None]
     elif seq_mode == "sequential":
-        y, s_new = wkv_sequential(r, kk, vv, w, p["bonus"], s0)
+        y, s_new = wkv_sequential(r, kk, vv, w, bonus, s0)
     elif cfg.attn_impl == "flash":
         # the chunked-WKV kernel (model-wide kernel-suite switch)
         from repro_torch.kernels.rwkv6_scan.ops import wkv6
-        y, s_new = wkv6(r, kk, vv, w, p["bonus"], s0)
+        y, s_new = wkv6(r, kk, vv, w, bonus, s0)
     else:
-        y, s_new = wkv_chunked(r, kk, vv, w, p["bonus"], s0)
-    y = y.reshape(B, T, D).to(cdt)
+        y, s_new = wkv_chunked(r, kk, vv, w, bonus, s0)
+    y = y.reshape(B, T, C).to(cdt)
     # per-head group norm (population variance, as jnp.var)
     yh = y.reshape(B, T, H, hd)
     yf = yh.float()
     mu = torch.mean(yf, -1, keepdim=True)
     var = torch.var(yf, -1, keepdim=True, unbiased=False)
-    yh = ((yh - mu) * torch.rsqrt(var + 64e-5)).to(cdt).reshape(B, T, D)
-    y = yh * p["ln_x_w"].to(cdt) + p["ln_x_b"].to(cdt)
-    out = (y * g) @ p["w_o"].to(cdt)
-    return out, {"shift": x[:, -1], "s": s_new}
+    yh = ((yh - mu) * torch.rsqrt(var + 64e-5)).to(cdt).reshape(B, T, C)
+    y = yh * ln_x_w.to(cdt) + ln_x_b.to(cdt)
+    out = (y * g) @ gather_fsdp(p["w_o"], 1, mctx, D).to(cdt)
+    return ((reduce_from_model(out, mctx) if rnn else out),
+            {"shift": L.last_positions(x, 1)[:, 0], "s": s_new})
 
 
-def _channel_mix(x, p, cfg: ModelConfig, state=None):
+def _channel_mix(x, p, cfg: ModelConfig, mctx: MeshCtx = None, state=None):
     cdt = x.dtype
+    D = x.shape[-1]
     prev = state["shift"] if state is not None else None
     xp = _token_shift(x, prev)
     dx = xp - x
     xk = x + dx * p["mu_k"].to(cdt)
     xr = x + dx * p["mu_r"].to(cdt)
-    k = torch.square(F.relu(xk @ p["w_k"].to(cdt)))
-    out = torch.sigmoid(xr @ p["w_r"].to(cdt)) * (k @ p["w_v"].to(cdt))
-    return out, {"shift": x[:, -1]}
+    w_k = gather_fsdp(p["w_k"], 0, mctx, D)
+    w_v = gather_fsdp(p["w_v"], 1, mctx, D)
+    cols = w_k.shape[-1] < cfg.d_ff    # hidden columns over "model"
+    if cols:
+        xk = copy_to_model(xk, mctx)
+    k = torch.square(F.relu(xk @ w_k.to(cdt)))
+    kv = k @ w_v.to(cdt)
+    if cols:
+        kv = reduce_from_model(kv, mctx)
+    out = torch.sigmoid(xr @ p["w_r"].to(cdt)) * kv
+    return out, {"shift": L.last_positions(x, 1)[:, 0]}
 
 
 def _block(x, bp, cfg: ModelConfig, mctx: MeshCtx, state=None,
            seq_mode="chunked"):
     h = L.layer_norm(x, bp["ln1"], bp["ln1b"])
-    tm, tstate = _time_mix(h, bp["tmix"], cfg,
+    tm, tstate = _time_mix(h, bp["tmix"], cfg, mctx,
                            state["tmix"] if state else None, seq_mode)
     x = x + tm
     h = L.layer_norm(x, bp["ln2"], bp["ln2b"])
-    cm, cstate = _channel_mix(h, bp["cmix"], cfg,
+    cm, cstate = _channel_mix(h, bp["cmix"], cfg, mctx,
                               state["cmix"] if state else None)
     x = x + cm
     if mctx is not None:
@@ -192,19 +237,18 @@ def _block(x, bp, cfg: ModelConfig, mctx: MeshCtx, state=None,
     return x, {"tmix": tstate, "cmix": cstate}
 
 
-def _embed_in(params, tokens, cfg: ModelConfig):
-    cdt = getattr(torch, cfg.compute_dtype)
-    # gather, then cast: the same values as the reference's cast-then-gather
-    x = params["embed"][tokens.long()].to(cdt)
-    return L.layer_norm(x, params["ln_in"], params["ln_in_b"])
+def _embed_in(params, tokens, cfg: ModelConfig, mctx: MeshCtx = None):
+    return L.layer_norm(tr._embed_in(params, tokens, cfg, mctx),
+                        params["ln_in"], params["ln_in_b"])
 
 
 def forward(params, tokens, cfg: ModelConfig, mctx: MeshCtx,
             collect_state: bool = False, seq_mode: str = "chunked"):
-    """tokens (B,T) -> logits (B,T,V) [+ the stacked state]. With
+    """tokens (B,T) -> logits (B,T,V) [+ the stacked state]; on a mesh
+    with the vocab over "model", this rank's block of the logits. With
     cfg.remat, each layer keeps only its input for the backward while grad
     is enabled (the reference's jax.checkpoint over its scan body)."""
-    x = _embed_in(params, tokens, cfg)
+    x = _embed_in(params, tokens, cfg, mctx)
     remat = cfg.remat and torch.is_grad_enabled()
     states = []
     for i in range(cfg.n_layers):
@@ -216,7 +260,7 @@ def forward(params, tokens, cfg: ModelConfig, mctx: MeshCtx,
             x, st = _block(x, bp, cfg, mctx, None, seq_mode)
         states.append(st)
     x = L.layer_norm(x, params["ln_f"], params["ln_f_b"])
-    logits = x @ params["embed"].to(x.dtype).T
+    logits = tr._unembed(params, x, cfg, mctx)
     if mctx is not None:
         logits = mctx.constraint(logits, mctx.batch_spec(None, "model"))
     if not collect_state:
@@ -226,7 +270,8 @@ def forward(params, tokens, cfg: ModelConfig, mctx: MeshCtx,
 
 def loss_fn(params, batch, cfg: ModelConfig, mctx: MeshCtx):
     logits = forward(params, batch["tokens"], cfg, mctx)
-    return L.softmax_xent(logits, batch["labels"], batch.get("mask"))
+    return L.softmax_xent(logits, batch["labels"], batch.get("mask"),
+                          mctx if logits.shape[-1] < cfg.vocab else None)
 
 
 def state_spec(cfg: ModelConfig, batch: int,
@@ -246,18 +291,18 @@ def state_spec(cfg: ModelConfig, batch: int,
 def prefill(params, tokens, cfg: ModelConfig, mctx: MeshCtx):
     """Returns (last-token logits (B,V), stacked state)."""
     logits, state = forward(params, tokens, cfg, mctx, collect_state=True)
-    return logits[:, -1], state
+    return tr._whole_logits(logits[:, -1], cfg, mctx), state
 
 
 def decode_step(params, token, pos, state, cfg: ModelConfig, mctx: MeshCtx):
     """token (B,) -> (logits (B,V), state), the state updated in place and
     returned. RWKV's state is position-free: `pos` is not read."""
     del pos
-    x = _embed_in(params, token[:, None], cfg)
+    x = _embed_in(params, token[:, None], cfg, mctx)
     for i in range(cfg.n_layers):
         st = _layer(state, i)
         x, new = _block(x, _layer(params["blocks"], i), cfg, mctx, st)
         tree_map(lambda d, s: d.copy_(s), st, new)
     x = L.layer_norm(x, params["ln_f"], params["ln_f_b"])
-    logits = (x @ params["embed"].to(x.dtype).T)[:, 0]
-    return logits, state
+    return tr._whole_logits(tr._unembed(params, x, cfg, mctx)[:, 0], cfg,
+                            mctx), state

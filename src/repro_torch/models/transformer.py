@@ -362,10 +362,11 @@ def _embed_in(params, tokens, cfg: ModelConfig, mctx: MeshCtx = None):
 
 
 def _unembed(params, x, cfg: ModelConfig, mctx: MeshCtx = None):
-    """Logits; on a mesh with the vocab over "model", this rank's block of
+    """Logits, through `unembed` or, where the params have none, the tied
+    embedding; on a mesh with the vocab over "model", this rank's block of
     them."""
     cdt = x.dtype
-    if cfg.tie_embeddings:
+    if "unembed" not in params:
         w = gather_fsdp(params["embed"], 1, mctx, cfg.d_model)
         if w.shape[0] < cfg.vocab:
             x = copy_to_model(x, mctx)

@@ -13,6 +13,18 @@ family's `_gqa`, so with attn_impl="flash" their prefill reaches the flash
 kernel; the cross layers take the plain unmasked attention. The gates
 start at zero, so at init tanh(0) removes the whole cross path. Decode
 writes the self caches in place and returns the cache.
+
+On a mesh each rank computes on its params' local shards, as XLA
+partitions the reference's specs: the self layers through
+`transformer._gqa` and `layers.sharded_mlp`, the cross layers with their
+q heads over "model" (the kv heads too where they divide the model
+ranks; where they do not, each rank projects them whole and takes those
+its q heads use), `w_o` row-parallel and summed over "model" before the
+gate's tanh scales it, and the cross MLP `sharded_mlp`. The embedding
+and the logits (through the embedding: the params have no `unembed`)
+are vocab-parallel; `vis_proj` and every fsdp leaf are gathered over
+"data" inside the layer. The caches hold the kv heads each rank's spec
+gives it.
 """
 from __future__ import annotations
 
@@ -24,6 +36,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.common.config import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as tr
+from repro_torch.models.context import (copy_to_model, gather_fsdp,
+                                        reduce_from_model)
 from repro_torch.models.params import pdef
 from repro_torch.models.transformer import CacheSpec, _embed_in, _layer, _proj
 
@@ -85,42 +99,65 @@ def param_defs(cfg: ModelConfig) -> Dict[str, Any]:
 
 def _self_block(x, bp, cfg, mctx, positions, cache=None, pos=None):
     h = L.rms_norm(x, bp["ln_attn"], cfg.rms_eps)
-    a, new_cache = tr._gqa(h, bp["attn"], cfg, positions, cache=cache, pos=pos)
+    a, new_cache = tr._gqa(h, bp["attn"], cfg, positions, mctx, cache=cache,
+                           pos=pos)
     x = x + a
     h = L.rms_norm(x, bp["ln_mlp"], cfg.rms_eps)
-    x = x + L.mlp(h, {k: v.to(x.dtype) for k, v in bp["mlp"].items()}, cfg.act)
+    x = x + L.sharded_mlp(h, bp["mlp"], cfg.act, cfg.d_ff, mctx)
     if mctx is not None:
         x = mctx.constraint(x, mctx.batch_spec(None, None))
     return x, new_cache
 
 
-def _cross_kv(vis, cp, cfg):
-    """vis (B, N, D) projected patch embeddings -> this layer's k, v."""
-    k = _proj(vis, cp["w_k"])
-    v = _proj(vis, cp["w_v"])
-    k = L.rms_norm(k, cp["k_ln"], cfg.rms_eps)
+def _q_heads(cp, cfg) -> bool:
+    """Whether this rank's cross layer holds only some of the q heads."""
+    return cp["w_q"].shape[1] < cfg.n_heads
+
+
+def _cross_kv(vis, cp, cfg, mctx=None):
+    """vis (B, N, D) projected patch embeddings -> this layer's k, v: the
+    kv heads this rank's `w_k`, `w_v` hold."""
+    d = cfg.d_model
+    w_k, w_v = (gather_fsdp(cp[k], 0, mctx, d) for k in ("w_k", "w_v"))
+    k_ln = cp["k_ln"]
+    if _q_heads(cp, cfg):
+        # the whole inputs feed this rank's heads: their gradients are
+        # the ranks' parts
+        vis, k_ln = copy_to_model(vis, mctx), copy_to_model(k_ln, mctx)
+        if w_k.shape[1] == cfg.n_kv_heads:
+            w_k, w_v = copy_to_model(w_k, mctx), copy_to_model(w_v, mctx)
+    k = _proj(vis, w_k)
+    v = _proj(vis, w_v)
+    k = L.rms_norm(k, k_ln, cfg.rms_eps)
     return k, v
 
 
 def _cross_block(x, cp, cfg, mctx, kv):
     cdt = x.dtype
+    d = cfg.d_model
     k, v = kv
     h = L.rms_norm(x, cp["ln"], cfg.rms_eps)
-    q = L.rms_norm(_proj(h, cp["w_q"]), cp["q_ln"], cfg.rms_eps)
+    w_q = gather_fsdp(cp["w_q"], 0, mctx, d)
+    q_ln = cp["q_ln"]
+    heads = _q_heads(cp, cfg)
+    if heads:
+        h, q_ln = copy_to_model(h, mctx), copy_to_model(q_ln, mctx)
+        if k.shape[2] == cfg.n_kv_heads:
+            k, v = tr._kv_heads(k, v, cfg, w_q.shape[1], mctx)
+    q = L.rms_norm(_proj(h, w_q), q_ln, cfg.rms_eps)
     a = L.cross_attention(q, k, v)
-    H, hd, d = cp["w_o"].shape
-    a = a.reshape(*a.shape[:2], H * hd) @ cp["w_o"].reshape(H * hd, d).to(cdt)
+    w_o = gather_fsdp(cp["w_o"], 2, mctx, d)
+    H, hd, _ = w_o.shape
+    a = a.reshape(*a.shape[:2], H * hd) @ w_o.reshape(H * hd, d).to(cdt)
+    if heads:
+        a = reduce_from_model(a, mctx)
     x = x + torch.tanh(cp["gate_attn"]).to(cdt) * a
     h = L.rms_norm(x, cp["ln_mlp"], cfg.rms_eps)
-    m = L.mlp(h, {k2: v2.to(cdt) for k2, v2 in cp["mlp"].items()}, cfg.act)
+    m = L.sharded_mlp(h, cp["mlp"], cfg.act, cfg.d_ff, mctx)
     x = x + torch.tanh(cp["gate_mlp"]).to(cdt) * m
     if mctx is not None:
         x = mctx.constraint(x, mctx.batch_spec(None, None))
     return x
-
-
-def _unembed(params, x):
-    return x @ params["embed"].to(x.dtype).T
 
 
 def _super_block(x, sp, vis, cfg, mctx, positions, collect_cache):
@@ -128,7 +165,7 @@ def _super_block(x, sp, vis, cfg, mctx, positions, collect_cache):
     for j in range(cfg.vlm.cross_every - 1):
         x, c = _self_block(x, _layer(sp["self"], j), cfg, mctx, positions)
         self_caches.append(c)
-    kv = _cross_kv(vis, sp["cross"], cfg)
+    kv = _cross_kv(vis, sp["cross"], cfg, mctx)
     x = _cross_block(x, sp["cross"], cfg, mctx, kv)
     if not collect_cache:
         return x, None
@@ -140,10 +177,12 @@ def _super_block(x, sp, vis, cfg, mctx, positions, collect_cache):
 def forward(params, tokens, vision_embeds, cfg: ModelConfig, mctx,
             collect_cache=False):
     """tokens (B,T), vision_embeds (B,N,d_vision) -> logits (B,T,V) [+
-    the stacked caches]."""
-    x = _embed_in(params, tokens, cfg)
+    the stacked caches]; on a mesh with the vocab over "model", this
+    rank's block of the logits."""
+    x = _embed_in(params, tokens, cfg, mctx)
     cdt = x.dtype
-    vis = vision_embeds.to(cdt) @ params["vis_proj"].to(cdt)
+    vis = vision_embeds.to(cdt) @ gather_fsdp(
+        params["vis_proj"], 1, mctx, cfg.d_model).to(cdt)
     positions = torch.arange(tokens.shape[1], device=x.device)
     # cfg.remat: each super-block keeps only its input for the backward,
     # as the reference checkpoints its scan body with nothing_saveable
@@ -160,7 +199,7 @@ def forward(params, tokens, vision_embeds, cfg: ModelConfig, mctx,
                                 collect_cache)
         caches.append(c)
     x = L.rms_norm(x, params["ln_f"], cfg.rms_eps)
-    logits = _unembed(params, x)
+    logits = tr._unembed(params, x, cfg, mctx)
     if mctx is not None:
         logits = mctx.constraint(logits, mctx.batch_spec(None, "model"))
     if not collect_cache:
@@ -174,7 +213,8 @@ def forward(params, tokens, vision_embeds, cfg: ModelConfig, mctx,
 def loss_fn(params, batch, cfg, mctx):
     logits = forward(params, batch["tokens"], batch["vision_embeds"], cfg,
                      mctx)
-    return L.softmax_xent(logits, batch["labels"], batch.get("mask"))
+    return L.softmax_xent(logits, batch["labels"], batch.get("mask"),
+                          mctx if logits.shape[-1] < cfg.vocab else None)
 
 
 def cache_spec(cfg: ModelConfig, batch: int, max_len: int,
@@ -196,13 +236,13 @@ def prefill(params, tokens, vision_embeds, cfg, mctx):
     """Returns (last-token logits (B,V), the stacked caches)."""
     logits, caches = forward(params, tokens, vision_embeds, cfg, mctx,
                              collect_cache=True)
-    return logits[:, -1], caches
+    return tr._whole_logits(logits[:, -1], cfg, mctx), caches
 
 
 def decode_step(params, token, pos, cache, cfg, mctx):
     """token (B,), pos (B,) -> (logits (B,V), cache). The self caches are
     updated in place; the cross caches are read as they are."""
-    x = _embed_in(params, token[:, None], cfg)
+    x = _embed_in(params, token[:, None], cfg, mctx)
     cdt = x.dtype
     for i in range(n_super(cfg)):
         sp, c = _layer(params["super"], i), _layer(cache, i)
@@ -213,4 +253,5 @@ def decode_step(params, token, pos, cache, cfg, mctx):
         kv = (c["cross"]["k"].to(cdt), c["cross"]["v"].to(cdt))
         x = _cross_block(x, sp["cross"], cfg, mctx, kv)
     x = L.rms_norm(x, params["ln_f"], cfg.rms_eps)
-    return _unembed(params, x)[:, 0], cache
+    return tr._whole_logits(tr._unembed(params, x, cfg, mctx)[:, 0], cfg,
+                            mctx), cache

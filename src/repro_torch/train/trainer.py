@@ -20,21 +20,20 @@ shardings: params as DTensors placed by `param_pspecs`, AdamW moments by
 cache by `cache_pspecs`; whatever a call is given is placed there first
 (`models.params.place`: a global tensor is cut into each rank's shard
 with no communication). Inside the body each rank computes on its batch
-shard and on the params' local shards (`local_params`): the dense and
-moe families shard their compute over "model" and gather fsdp leaves a
-layer at a time (`models/transformer.py`), so no param is whole on a
-rank; the other families gather theirs whole (`ModelAPI`) and run
-replicated over "model". Either way each rank's loss is its batch
-shard's, the same on every model rank, and its gradient of a local shard
-is that shard's: summed over "data" already where the leaf is sharded
-there (fsdp's reduce-scatter), else the rank's part. Scaled by 1/(data
+shard and on the params' local shards (`local_params`): every family
+shards its compute over "model" and gathers fsdp leaves a layer at a
+time (`models/`), so no param is whole on a rank. Each rank's loss is
+its batch shard's, the same on every model rank, and its gradient of a
+local shard is that shard's: summed over "data" already where the leaf
+is sharded there (fsdp's reduce-scatter), else the rank's part. Scaled by 1/(data
 ranks), the loss is summed over the data axes and each gradient reduced
 into its moment's placement (a reduce-scatter where ZeRO-1 shards it);
 the update all-gathers each param back into its own placement. The
 metrics are replicated. A decode step reads and writes the local kv
-heads of its cache where the model shards them; a cache sharded over
-"model" along its sequence (`cache_seq_shard`), and every cache of the
-other families, is gathered along "model" and its shard written back.
+heads (or recurrent channels) of its cache where the model shards them;
+a cache sharded over "model" along its sequence (`cache_seq_shard`,
+`ModelAPI.cache_seq_axis`) is gathered along "model" and its shard
+written back.
 StaticStep captures and replays the body on the DTensors' local
 tensors, with its collectives.
 
@@ -104,7 +103,8 @@ def _microbatch(batch: Dict[str, Any], nmb: int, mctx: MeshCtx):
 
 def _model_replicated(pl, mesh) -> list:
     """Placements `pl` on `mesh` with "model" replicated: the compute
-    view's, since the model runs replicated over "model"."""
+    view's of a step's inputs, which every model rank reads whole (its
+    batch shard)."""
     return [p if name != "model" else Replicate()
             for name, p in zip(mesh.mesh_dim_names, pl)]
 
@@ -132,18 +132,6 @@ def _placed_output(t: torch.Tensor, s, mctx: MeshCtx,
         return DTensor.from_local(t, mesh, pl)
     return DTensor.from_local(t, mesh, _model_replicated(pl, mesh)
                               ).redistribute(mesh, pl)
-
-
-def _heads_local(api: ModelAPI, s) -> bool:
-    """Whether a rank computes on its local shard of a cache leaf at
-    fitted spec `s`: in the families that shard their compute, unless
-    "model" shards the leaf's sequence (dim 2, `cache_seq_shard`)."""
-    return api.shards_compute and "model" not in (
-        s[2] if isinstance(s[2], tuple) else (s[2],))
-
-
-def _cache_view(c, s, api: ModelAPI, mctx: MeshCtx):
-    return local(c) if _heads_local(api, s) else _compute_view(c, mctx)
 
 
 def _mesh_sum(loss, grads, params, like, mctx: MeshCtx):
@@ -510,6 +498,7 @@ def jit_prefill_step(api: ModelAPI, mctx: MeshCtx, shape: ShapeConfig):
     else:
         put_params, in_specs, logits_spec, cache_spec = _mesh_io(
             api, mctx, shape)
+        model_local = api.cache_seq_axis(mctx) is None
 
         def body(params, inputs):
             logits, cache = api.prefill(
@@ -517,8 +506,7 @@ def jit_prefill_step(api: ModelAPI, mctx: MeshCtx, shape: ShapeConfig):
                 {k: _compute_view(v, mctx) for k, v in inputs.items()}, mctx)
             return (_placed_output(logits, logits_spec, mctx),
                     tree_map(lambda c, s: None if c is None
-                             else _placed_output(c, s, mctx,
-                                                 _heads_local(api, s)),
+                             else _placed_output(c, s, mctx, model_local),
                              cache, cache_spec))
     step = StaticStep(body, mctx.device, {
         "params": BIND,
@@ -536,8 +524,8 @@ def jit_decode_step(api: ModelAPI, mctx: MeshCtx, shape: ShapeConfig,
     returned (the reference's donate_argnums=(3,)): a call given it makes
     no copy. Without `donate` the step returns a copy of it. On a mesh
     the cache is placed by `cache_pspecs`; each step reads and writes its
-    local kv heads (the dense and moe families), or gathers it whole along
-    "model", where it is sharded there, and writes its shard back."""
+    local shards, or, where "model" shards the sequence, gathers the cache
+    whole along "model" and writes its shard back."""
     specs = api.input_specs(shape)
     mesh = mctx.device_mesh
     if mesh is None:
@@ -549,11 +537,13 @@ def jit_decode_step(api: ModelAPI, mctx: MeshCtx, shape: ShapeConfig,
     else:
         put_params, in_specs, logits_spec, cache_spec = _mesh_io(
             api, mctx, shape)
+        model_local = api.cache_seq_axis(mctx) is None
 
         def body(params, token, pos, cache):
-            view = tree_map(lambda c, s: None if c is None
-                            else _cache_view(c, s, api, mctx),
-                            cache, cache_spec)
+            # its local shards, or where "model" shards the caches'
+            # sequence, its batch shard whole along "model"
+            view = tree_map(lambda c: None if c is None else (
+                local(c) if model_local else _compute_view(c, mctx)), cache)
             logits, new = api.decode(
                 local_params(params),
                 {"token": _compute_view(token, mctx),
@@ -562,8 +552,8 @@ def jit_decode_step(api: ModelAPI, mctx: MeshCtx, shape: ShapeConfig,
             def write(c, v, n, s):
                 if n is v and same_memory(v, local(c)):
                     return              # updated in place, c's own storage
-                local(c).copy_(local(_placed_output(
-                    n, s, mctx, _heads_local(api, s))))
+                local(c).copy_(local(_placed_output(n, s, mctx,
+                                                    model_local)))
             tree_map(lambda c, v, n, s: None if c is None
                      else write(c, v, n, s), cache, view, new, cache_spec)
             return _placed_output(logits, logits_spec, mctx), cache

@@ -5,9 +5,11 @@
 joins a gloo group of WORLD ranks through the FileStore at STORE, runs
 CASE on the inputs pickled at IN (numpy arrays made by the test from the
 reference) and pickles this rank's results to OUT.RANK. One torch thread
-a rank. `tests/test_torch_multidevice.py` and
-`tests/test_torch_tensor_parallel.py` start the ranks, each launch under
-a time limit, and compare their results with the reference's.
+a rank. `tests/test_torch_multidevice.py`,
+`tests/test_torch_tensor_parallel.py` and
+`tests/test_torch_tensor_parallel_families.py` start the ranks, each
+launch under a time limit, and compare their results with the
+reference's.
 """
 import contextlib
 import dataclasses
@@ -27,6 +29,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "src"))
 
 from repro_torch.common.config import ShapeConfig, TrainConfig  # noqa: E402
 from repro_torch.configs import tiny_config  # noqa: E402
+from repro_torch.launch.serve import grow_cache  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh_ctx  # noqa: E402
 from repro_torch.models.api import ModelAPI  # noqa: E402
 from repro_torch.models.context import make_mesh, mesh_ctx  # noqa: E402
@@ -151,7 +154,10 @@ def gpipe(job, rank):
 
 
 def serve(job, rank):
-    """jit_prefill_step, then decode steps through jit_decode_step, on the
+    """jit_prefill_step on the tokens (with the job's other prefill
+    inputs: the vlm's patch embeddings, the encdec's frames, over which
+    `seq` is the prefill shape's length), then decode steps through
+    jit_decode_step from the cache grown by `grow` positions, on the
     (data, model) mesh: the logits (whole) and the cache's placements."""
     cfg = _cfg(job["cfg"])
     mctx = make_host_mesh_ctx(cfg, *job["mesh"], device="cpu")
@@ -159,13 +165,15 @@ def serve(job, rank):
     params = params_from_numpy(job["params"], device="cpu")
     toks = job["tokens"]
     B, T = toks.shape
-    prefill = jit_prefill_step(api, mctx, ShapeConfig("p", T, B, "prefill"))
-    logits, cache = prefill(params, {"tokens": toks})
+    prefill = jit_prefill_step(api, mctx, ShapeConfig(
+        "p", job.get("seq", T), B, "prefill"))
+    logits, cache = prefill(params, dict(job.get("inputs", {}), tokens=toks))
     out = {"prefill": _host(logits),
-           "cache_placements": tree_map(_placements, cache)}
-    grown = tree_map(lambda c: torch.cat(
-        [c.full_tensor(), torch.zeros_like(c.full_tensor())[:, :, :job[
-            "grow"]]], dim=2), cache)
+           "cache_placements": tree_map(
+               lambda c: None if c is None else _placements(c), cache)}
+    grown = grow_cache(tree_map(lambda c: None if c is None
+                                else c.full_tensor(), cache),
+                       cfg.family, job["grow"])
     decode = jit_decode_step(api, mctx, ShapeConfig(
         "d", T + job["grow"], B, "decode"))
     steps = []

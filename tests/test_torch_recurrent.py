@@ -210,3 +210,23 @@ def test_pad_cache_passes_recurrent_state_through(name):
         lambda s: torch.ones(s.shape, dtype=s.dtype), api.cache_specs(2, 8),
         is_leaf=lambda x: hasattr(x, "dtype"))
     assert eng._pad_cache(state) is state
+
+
+def test_a_prefill_state_holds_only_its_last_positions():
+    """A recurrent block's state after a T-token pass owns its rows alone
+    (h its last position, conv its last w - 1): views of the scan's (B, T,
+    R) output and of the padded conv input would keep them alive until
+    the prefill stacks every layer's state."""
+    from repro_torch.models.params import init_params
+    from repro_torch.models.transformer import _layer
+    cfg = tiny_config("recurrentgemma-2b")
+    params = init_params(recurrent.param_defs(cfg),
+                         torch.Generator().manual_seed(0), device="cpu")
+    x = torch.randn(2, 9, cfg.d_model)
+    _, state = recurrent._block(x, _layer(params["tail"], 0), cfg, None,
+                                "rec", torch.arange(9))
+    r, w = cfg.hybrid.d_rnn, cfg.hybrid.conv_width
+    assert state["h"].shape == (2, r)
+    assert state["conv"].shape == (2, w - 1, r)
+    for name, leaf in state.items():
+        assert leaf.untyped_storage().nbytes() == leaf.nbytes, name

@@ -126,3 +126,25 @@ def test_grads_match_reference_vjp(with_s0):
      + (s * torch.from_numpy(ds)).sum()).backward()
     for x, w in zip(ins, want):
         np.testing.assert_allclose(x.grad.numpy(), np.asarray(w), **TOL)
+
+
+def test_grads_under_the_step_recorder():
+    """The WKV backward under a Python dispatch mode: the dry-run's
+    recorder (`roofline.collectives.count_step`) counting a real step.
+    Its gradients equal those of the same step run bare, and the FLOP
+    counter sees the backward op (torch.func's vjp inside the op failed
+    under a mode: "Cannot access storage of TensorWrapper")."""
+    from repro_torch.roofline.collectives import count_step
+    xs = _inputs(43, 1, 24, 2, 16)
+
+    def grads(*a):
+        ins = [x.clone().requires_grad_() for x in a]
+        y, s = ops.wkv6(*ins, chunk=16)
+        return torch.autograd.grad(y.square().sum() + s.sum(), ins)
+
+    bare = grads(*_t(xs))
+    counted = count_step(grads, *_t(xs))
+    for got, want in zip(counted.outputs, bare):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert counted.flops_by_op.get("repro_torch.wkv6_backward", 0) > 0, (
+        counted.flops_by_op)
