@@ -31,15 +31,16 @@ result):
                library yardstick, used nowhere in the port) at the serve
                shape, at dbrx's and llama-3.2-vision's prefill shapes
                (head_dim 128, 48 and 64 heads over 8) and at phase 12(c)'s
-               (2 x 4096 tokens, one head of 256) and 12(d)'s (1 x 4096
-               tokens, 4 heads over one of 128); holds
+               (2 x 4096 tokens, one head of 256), 12(d)'s (1 x 4096
+               tokens, 4 heads over one of 128) and 12(e)'s (1 x 4096
+               tokens, 3 heads over one of 128); holds
                flash_attention_bwd's dq, dk and dv against its plain
                version in both types (GQA, MQA, window, ragged,
                head_dim 128 and 256, padded keys, the tile edges, a
                group of 32, the train and serve shapes), then
                times it, its plain version and the backward of
                scaled_dot_product_attention at the serve and train shapes
-               and at phase 12(c)'s and 12(d)'s;
+               and at phase 12(c)'s, 12(d)'s and 12(e)'s;
      scans     holds rglru_scan against its plain version (the reference's
                shapes, T = 1, ragged R, the prefill shape (4, 1024, 2560),
                T = 63, 65 and 4096 at R = 2567, a near 1 over 4096 steps,
@@ -229,6 +230,19 @@ result):
                dry-run's peak for the cell at that depth, the step's
                seconds, the launches and every call's shape, then each
                kernel at its local shape held against its plain version;
+               (e) the same for the moe family's train step at train_4k,
+               at the moe phase's depths (16 microbatches of 1 x 4096
+               tokens): dbrx-132b at 4 of 40 layers (its expert a rank,
+               flash at 3 q heads over one kv head of 128: 128 forward
+               launches, the forward and remat's recompute, and 64
+               backward, each kernel held against its plain version
+               there) and deepseek-v2-236b at 3 of 60 (10 experts a
+               rank; MLA, no flash launch); the loss printed, not held
+               (the fake all-to-all leaves its receive buffers as they
+               were); then 12(c)'s gemma-7b rank again with
+               remat_policy="save_collectives", its peak and step beside
+               the first run's and beside its dry-run variant save-coll
+               (over fake collectives only the memory means anything);
      families  training the hybrid, ssm and encdec families, in the
                train phase's style and traffic: (a) recurrentgemma-2b and
                rwkv6-1.6b whole at full width (attn_impl="flash", float32
@@ -844,6 +858,10 @@ RANK_SHAPE = (2, 4096, 1, 1, 256)
 # 4096 tokens) on one rank: 4 of its 64 q heads, whose group of 8 reads one
 # of the 8 kv heads (which do not divide the 16 model ranks), head_dim 128
 VLM_RANK_SHAPE = (1, 4096, 4, 1, 128)
+# phase 12(e)'s: a microbatch of dbrx-132b's train_4k step (1 x 4096
+# tokens) on one rank: 3 of its 48 q heads, whose group of 6 reads one of
+# the 8 kv heads (which do not divide the 16 model ranks), head_dim 128
+DBRX_RANK_SHAPE = (1, 4096, 3, 1, 128)
 D128_SHAPES = {  # arch -> its prefill wave's attention: B, T=S, H, KH, D
     "dbrx-132b": (4, 1024, 48, 8, 128),
     "llama-3.2-vision-90b": (4, 1024, 64, 8, 128),
@@ -917,6 +935,7 @@ def flash_phase(seed: int) -> dict:
             for arch, shape in D128_SHAPES.items()}
     d256 = _flash_times(RANK_SHAPE, gen)
     vlm_rank = _flash_times(VLM_RANK_SHAPE, gen)
+    dbrx_rank = _flash_times(DBRX_RANK_SHAPE, gen)
     # the launch floor: one CTA (B = H = KH = 1, T = S = 16, bf16)
     q1, k1, v1 = (torch.randn(1, FLASH_FLOOR_T, 1, 64, generator=gen,
                               device="cuda").bfloat16() for _ in range(3))
@@ -929,7 +948,7 @@ def flash_phase(seed: int) -> dict:
           f"the device, {floor_call_ms:.6f} ms a call")
     return {"max_abs_err": max(worst.values()), "max_abs_err_by_dtype": worst,
             "max_abs_err_at_d128_prefill": at_prefill, **times, "d128": d128,
-            "d256": d256, "vlm_rank": vlm_rank,
+            "d256": d256, "vlm_rank": vlm_rank, "dbrx_rank": dbrx_rank,
             "floor_ms": floor_ms, "floor_call_ms": floor_call_ms}
 
 
@@ -1071,7 +1090,8 @@ def flash_bwd_phase(seed: int) -> dict:
     print(f"flash_attention_bwd within tolerance of its plain version in "
           f"{n_checks} checks of dq, dk and dv; max abs error {worst}")
 
-    # times at the train and serve shapes and phase 12(c)'s and 12(d)'s:
+    # times at the train and serve shapes and phase 12(c)'s, 12(d)'s and
+    # 12(e)'s:
     # `ms` the two kernels' device
     # time a call (profiler), `call_ms` the backward as autograd runs it
     # (delta, then both kernels; CUDA events), `library_ms` the backward of
@@ -1080,7 +1100,8 @@ def flash_bwd_phase(seed: int) -> dict:
     for shape_name, (B, T, H, KH, D) in (("train", TRAIN_SHAPE),
                                          ("serve", SERVE_SHAPE),
                                          ("rank", RANK_SHAPE),
-                                         ("vlm_rank", VLM_RANK_SHAPE)):
+                                         ("vlm_rank", VLM_RANK_SHAPE),
+                                         ("dbrx_rank", DBRX_RANK_SHAPE)):
         q, k, v, dout = inputs(B, T, H, KH, D, torch.bfloat16)
         scale = D ** -0.5
         out, lse = ops.flash_attention(q, k, v, return_lse=True)
@@ -4130,21 +4151,32 @@ FAMILY_RANKS = {  # 12(d): arch -> (cell, layers kept; None: whole)
     # cuts it
     VLM: ("train_4k", VLM_SUPER_BLOCKS * 5),
 }
-FAMILY_RANK_DRYRUN = """
+# 12(e): arch -> (cell, layers kept), the moe serve phase's depths
+MOE_RANKS = {arch: ("train_4k", layers) for arch, layers in MOE_SERVE.items()}
+SAVE_COLL = "save_collectives"  # 12(c)'s second run; the dry-run's "save-coll"
+# the dry-runs of a rank of the production mesh: a JSON object of key ->
+# (arch, cell, layers kept or None, dry-run variant), traced in turn
+RANKS_DRYRUN = """
 import json, sys
 from repro_torch.common.config import SHAPE_BY_NAME
 from repro_torch.configs import get_config
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import production_mesh_shape
 out = {}
-for arch, (cell, layers) in json.loads(sys.argv[1]).items():
-    cfg = get_config(arch).replace(attn_impl=dryrun.ATTN_IMPL)
+for key, (arch, cell, layers, variant) in json.loads(sys.argv[1]).items():
+    cfg, nmb = dryrun.apply_variant(
+        get_config(arch).replace(attn_impl=dryrun.ATTN_IMPL), variant)
     if layers:
         cfg = cfg.replace(n_layers=layers)
-    out[arch] = dryrun.trace_cell(cfg, SHAPE_BY_NAME[cell],
-                                  production_mesh_shape())
+    out[key] = dryrun.trace_cell(cfg, SHAPE_BY_NAME[cell],
+                                 production_mesh_shape(), nmb)
 print(json.dumps(out))
 """
+FAMILY_RANK_DRYRUN = {arch: (arch, cell, layers, "")
+                      for arch, (cell, layers) in FAMILY_RANKS.items()}
+MOE_RANK_DRYRUN = {**{arch: (arch, cell, layers, "")
+                      for arch, (cell, layers) in MOE_RANKS.items()},
+                   SAVE_COLL: (RANK_ARCH, RANK_CELL, None, "save-coll")}
 
 
 def _kernel_calls():
@@ -4189,13 +4221,15 @@ def _kernel_calls():
     return counting()
 
 
-def _rank_step(arch: str, cell: str, layers, seed: int) -> dict:
+def _rank_step(arch: str, cell: str, layers, seed: int,
+               remat_policy: str = "nothing") -> dict:
     """Rank 0 of the production 16 x 16 mesh over torch's fake process
     group (the dry-run's "fake" backend: its collectives move nothing, so
     the values are not the model's, and this measures memory and time
     only; tests/test_torch_tensor_parallel*.py hold the values on gloo
     ranks), with real tensors on the card: `arch` (cut to `layers` where
-    given) at `cell`, its step's body run once eagerly on params (and
+    given, under `remat_policy`) at `cell`, its step's body run once
+    eagerly on params (and
     AdamW moments) and inputs made as this rank's shards. Returns the
     step's seconds, max_memory_allocated over it, the state's GB, each
     model kernel's launches and call shapes (`_kernel_calls`), and the
@@ -4214,7 +4248,8 @@ def _rank_step(arch: str, cell: str, layers, seed: int) -> dict:
     from repro_torch.train.trainer import (jit_prefill_step, jit_train_step,
                                            map_tree, placed)
 
-    cfg = get_config(arch).replace(attn_impl="flash")
+    cfg = get_config(arch).replace(attn_impl="flash",
+                                   remat_policy=remat_policy)
     if layers:
         cfg = cfg.replace(n_layers=layers)
     shape = SHAPE_BY_NAME[cell]
@@ -4277,7 +4312,7 @@ def _rank_step(arch: str, cell: str, layers, seed: int) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"arch": arch, "cell": cell, "layers": cfg.n_layers,
-            "microbatches": nmb,
+            "remat_policy": remat_policy, "microbatches": nmb,
             "rows": shape.global_batch // ms.shape[0] // nmb,
             "seq_len": shape.seq_len, "step_s": step_s,
             "max_memory_allocated_gb": peak / 1e9, "state_gb": state_gb,
@@ -4335,12 +4370,14 @@ def _rank_line(label: str, got: dict, dry: dict, ms) -> float:
     return dry_gb
 
 
-def rank_phase(seed: int, fake_dryrun) -> dict:
+def rank_phase(seed: int, fake_dryrun, save_coll_dry: dict) -> dict:
     """12(c): `_rank_step` of gemma-7b's train step at train_4k (8
     microbatches of 2 x 4096 tokens): max_memory_allocated beside the
     dry-run's peak for the cell, the step's seconds, the flash launches
     (every call at RANK_SHAPE, head_dim 256), and one forward and one
-    backward call at that shape held against their plain versions."""
+    backward call at that shape held against their plain versions. Then
+    the same step with remat_policy="save_collectives" beside the first
+    and beside `save_coll_dry`, its dry-run (variant "save-coll")."""
     import torch
     from repro_torch.launch.mesh import production_mesh_shape
     got = _rank_step(RANK_ARCH, RANK_CELL, None, seed)
@@ -4360,12 +4397,40 @@ def rank_phase(seed: int, fake_dryrun) -> dict:
           f"{RANK_SHAPE} (B, T=S, H, KH, D) vs their plain versions: "
           f"{fwd_err:.6f}, {bwd_err:.6f}")
     peak_gb = got["max_memory_allocated_gb"]
+    save = _rank_step(RANK_ARCH, RANK_CELL, None, seed, SAVE_COLL)
+    check(save["calls"]["flash_attention"] == want
+          and save["launches"]["flash_attention"] == launched,
+          f"12(c) {SAVE_COLL}: flash {save['launches']} at "
+          f"{save['calls']}, not {launched} at {want}")
+    save_dry_gb = _rank_line(f"(c) {SAVE_COLL}", save, save_coll_dry,
+                             production_mesh_shape())
+    print(f"[rank] (c) remat_policy {SAVE_COLL} vs nothing: "
+          f"max_memory_allocated {save['max_memory_allocated_gb']:.3f} vs "
+          f"{peak_gb:.3f} GB (dry-run {save_dry_gb:.3f} vs {dry_gb:.3f}; "
+          f"all-reduces {save_coll_dry['collective_counts']['all-reduce']} "
+          f"vs {fake['collective_counts']['all-reduce']}, FLOPs "
+          f"{save_coll_dry['flops_per_device']:.6e} vs "
+          f"{fake['flops_per_device']:.6e}); step {save['step_s']:.3f} vs "
+          f"{got['step_s']:.3f} s (over the fake group's collectives, which "
+          f"move nothing, only the memory means anything)")
     return {"arch": RANK_ARCH, "cell": RANK_CELL, "step_s": got["step_s"],
             "max_memory_allocated_gb": peak_gb, "state_gb": got["state_gb"],
             "dryrun_peak_gb": dry_gb, "dryrun_trace_s": fake["trace_s"],
             "dryrun_over_card": dry_gb / peak_gb,
+            "dryrun_collectives": fake["collective_counts"],
+            "dryrun_flops": fake["flops_per_device"],
             "flash_launches": launched, "flash_fwd_err": fwd_err,
-            "flash_bwd_err": bwd_err, "microbatches": got["microbatches"]}
+            "flash_bwd_err": bwd_err, "microbatches": got["microbatches"],
+            SAVE_COLL: {
+                "step_s": save["step_s"],
+                "max_memory_allocated_gb": save["max_memory_allocated_gb"],
+                "state_gb": save["state_gb"], "dryrun_peak_gb": save_dry_gb,
+                "dryrun_trace_s": save_coll_dry["trace_s"],
+                "dryrun_over_card": save_dry_gb
+                / save["max_memory_allocated_gb"],
+                "dryrun_collectives": save_coll_dry["collective_counts"],
+                "dryrun_flops": save_coll_dry["flops_per_device"],
+                "flash_launches": save["launches"]["flash_attention"]}}
 
 
 def family_rank_phase(seed: int, fake_dryrun) -> dict:
@@ -4462,6 +4527,57 @@ def family_rank_phase(seed: int, fake_dryrun) -> dict:
           f"D) {fwd_err:.6f}, {bwd_err:.6f}")
     return {"runs": runs, "rglru_err": rg_err, "wkv_err": wkv_err,
             "flash_fwd_err": fwd_err, "flash_bwd_err": bwd_err}
+
+
+def moe_rank_phase(seed: int, dry: dict) -> dict:
+    """12(e): `_rank_step` of the moe family's train step at train_4k at
+    the moe serve phase's depths (MOE_RANKS; 16 microbatches of 1 x 4096
+    tokens): dbrx-132b, every flash call at DBRX_RANK_SHAPE, twice a layer
+    a microbatch forward (remat's recompute) and once backward, both
+    kernels held against their plain versions there; deepseek-v2-236b,
+    whose MLA takes the plain attention: no flash call. Each:
+    max_memory_allocated beside the dry-run's peak for the cell at that
+    depth (`dry`, from a process started before the serve phase), the
+    step's seconds, the state's GB, the launches and call shapes. The
+    loss is printed, not held: the fake group's all-to-all writes nothing
+    into its receive buffer."""
+    import torch
+    from repro_torch.launch.mesh import production_mesh_shape
+    ms = production_mesh_shape()
+    runs = {arch: _rank_step(arch, cell, layers, seed)
+            for arch, (cell, layers) in MOE_RANKS.items()}
+    dbrx, deepseek = runs["dbrx-132b"], runs["deepseek-v2-236b"]
+    B, T, H, KH, D = DBRX_RANK_SHAPE
+    want = [((B, T, H, D), (B, T, KH, D))]
+    per = dbrx["layers"] * dbrx["microbatches"]
+    check(dbrx["calls"]["flash_attention"] == want,
+          f"12(e) dbrx-132b: flash calls at "
+          f"{dbrx['calls']['flash_attention']}, not {want}")
+    launched = dbrx["launches"]["flash_attention"]
+    check(launched["fwd"] == 2 * per and launched["bwd"] == per
+          and not launched["bwd_softcap"],
+          f"12(e) dbrx-132b: flash launches {dbrx['launches']}, not "
+          f"{2 * per} forward and {per} backward")
+    check(not any(any(v.values()) for v in deepseek["launches"].values())
+          and not any(deepseek["calls"].values()),
+          f"12(e) deepseek-v2-236b: a kernel launched: "
+          f"{deepseek['launches']} at {deepseek['calls']}")
+    for arch, got in runs.items():
+        for other, shapes in got["calls"].items():
+            check(other == "flash_attention" or not shapes,
+                  f"12(e) {arch}: {other} called at {shapes}")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 13)
+    fwd_err, bwd_err = _flash_held("12(e)", DBRX_RANK_SHAPE, gen)
+    for arch, got in runs.items():
+        got["dryrun_peak_gb"] = _rank_line("(e)", got, dry[arch], ms)
+        got["dryrun_trace_s"] = dry[arch]["trace_s"]
+        got["dryrun_flops"] = dry[arch]["flops_per_device"]
+        got["dryrun_collectives"] = dry[arch]["collective_counts"]
+    print(f"[rank] (e) flash forward and backward at {DBRX_RANK_SHAPE} (B, "
+          f"T=S, H, KH, D) vs their plain versions: {fwd_err:.6f}, "
+          f"{bwd_err:.6f}; deepseek-v2-236b's MLA: no flash launch")
+    return {"runs": runs, "flash_fwd_err": fwd_err,
+            "flash_bwd_err": bwd_err}
 
 
 # -- phase 13: the dry-run and the roofline -----------------------------------
@@ -4681,7 +4797,7 @@ def main(argv=None) -> int:
     if args.stream_mib != 1024:
         print(f"stream cut to {args.stream_mib} MiB from 1024 MiB")
     times: dict = {}
-    rank_dryrun = family_dryrun = None
+    rank_dryrun = family_dryrun = moe_dryrun = None
     try:
         t0 = time.perf_counter()
         card = card_line()
@@ -4754,8 +4870,10 @@ def main(argv=None) -> int:
         # 12(c)'s dry-run (minutes of one CPU core), in a process of its
         # own from here on, after the storage phases it would slow
         rank_dryrun = _dryrun_process(RANK_DRYRUN, RANK_ARCH, RANK_CELL)
-        family_dryrun = _dryrun_process(FAMILY_RANK_DRYRUN,
-                                        json.dumps(FAMILY_RANKS))
+        family_dryrun = _dryrun_process(RANKS_DRYRUN,
+                                        json.dumps(FAMILY_RANK_DRYRUN))
+        moe_dryrun = _dryrun_process(RANKS_DRYRUN,
+                                     json.dumps(MOE_RANK_DRYRUN))
         t0 = time.perf_counter()
         serve = serve_phase(args.seed, times)
         times["serve_phase_s"] = time.perf_counter() - t0
@@ -4785,11 +4903,17 @@ def main(argv=None) -> int:
         mesh = mesh_phase(args.seed, times)
         times["mesh_phase_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        rank = rank_phase(args.seed, rank_dryrun)
+        moe_dry = _dryrun_result(moe_dryrun)
+        times["moe_rank_dryrun_wait_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rank = rank_phase(args.seed, rank_dryrun, moe_dry[SAVE_COLL])
         times["rank_phase_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         family_rank = family_rank_phase(args.seed, family_dryrun)
         times["family_rank_phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        moe_rank = moe_rank_phase(args.seed, moe_dry)
+        times["moe_rank_phase_s"] = time.perf_counter() - t0
 
         # after the mesh phase: run before it, they left the profiler
         # losing records in the mesh phase's single traces (on an NVIDIA
@@ -4814,7 +4938,7 @@ def main(argv=None) -> int:
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     finally:
-        for proc in (rank_dryrun, family_dryrun):
+        for proc in (rank_dryrun, family_dryrun, moe_dryrun):
             if proc is not None:
                 proc.kill()
                 proc.wait()
@@ -4834,6 +4958,7 @@ def main(argv=None) -> int:
     print("mesh:", json.dumps(mesh))
     print("rank:", json.dumps(rank))
     print("family rank:", json.dumps(family_rank))
+    print("moe rank:", json.dumps(moe_rank))
     print("dryrun:", json.dumps(dry))
     # flash_attention_fwd's serve paths, each counted from 0 just before it
     flash_paths = {"granite-3-2b": serve["flash_launches"],
@@ -4844,12 +4969,20 @@ def main(argv=None) -> int:
                    f"{RANK_ARCH} rank train": rank["flash_launches"]["fwd"]}
     vlm_rank = family_rank["runs"][VLM]["launches"]["flash_attention"]
     flash_paths[f"{VLM} rank train"] = vlm_rank["fwd"]
+    dbrx_rank = moe_rank["runs"]["dbrx-132b"]["launches"]["flash_attention"]
+    flash_paths["dbrx-132b rank train"] = dbrx_rank["fwd"]
+    save_rank = rank[SAVE_COLL]["flash_launches"]
+    flash_paths[f"{RANK_ARCH} rank train {SAVE_COLL}"] = save_rank["fwd"]
     for arch, leg in flash["d128"].items():
         leg["launches"] = flash_paths[arch]
-    flash["d256"]["launches"] = rank["flash_launches"]["fwd"]
+    flash["d256"]["launches"] = (rank["flash_launches"]["fwd"]
+                                 + save_rank["fwd"])
     flash["vlm_rank"]["launches"] = vlm_rank["fwd"]
-    flash_bwd["shapes"]["rank"]["launches"] = rank["flash_launches"]["bwd"]
+    flash["dbrx_rank"]["launches"] = dbrx_rank["fwd"]
+    flash_bwd["shapes"]["rank"]["launches"] = (rank["flash_launches"]["bwd"]
+                                               + save_rank["bwd"])
     flash_bwd["shapes"]["vlm_rank"]["launches"] = vlm_rank["bwd"]
+    flash_bwd["shapes"]["dbrx_rank"]["launches"] = dbrx_rank["bwd"]
     bwd = flash_bwd["shapes"]["train"]
     rgp, wkv = scans["rglru"]["legs"]["prefill"], scans["wkv"]
     # the scans' serve and train paths, each counted from 0 just before it
@@ -4881,6 +5014,7 @@ def main(argv=None) -> int:
         "replaces": FK.REPLACES, "launches": sum(flash_paths.values()),
         "launches_by_path": flash_paths, "d128": flash["d128"],
         "d256": flash["d256"], "vlm_rank": flash["vlm_rank"],
+        "dbrx_rank": flash["dbrx_rank"],
         "max_abs_err": flash["max_abs_err"], "ms": flash["ms"],
         "call_ms": flash["call_ms"], "plain_ms": flash["plain_ms"],
         "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
@@ -4893,12 +5027,15 @@ def main(argv=None) -> int:
         "replaces": FKB.REPLACES,
         "launches": (train["flash_launches"]["bwd"]
                      + mesh["train"]["flash_launches"]["bwd"]
-                     + rank["flash_launches"]["bwd"] + vlm_rank["bwd"]),
+                     + rank["flash_launches"]["bwd"] + save_rank["bwd"]
+                     + vlm_rank["bwd"] + dbrx_rank["bwd"]),
         "launches_by_path": {
             "train": train["flash_launches"]["bwd"],
             "mesh train": mesh["train"]["flash_launches"]["bwd"],
             f"{RANK_ARCH} rank train": rank["flash_launches"]["bwd"],
-            f"{VLM} rank train": vlm_rank["bwd"]},
+            f"{RANK_ARCH} rank train {SAVE_COLL}": save_rank["bwd"],
+            f"{VLM} rank train": vlm_rank["bwd"],
+            "dbrx-132b rank train": dbrx_rank["bwd"]},
         "max_abs_err": flash_bwd["max_abs_err"], "ms": bwd["ms"],
         "call_ms": bwd["call_ms"], "plain_ms": bwd["plain_ms"],
         "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],

@@ -7,6 +7,10 @@ every failed cell with its error. With `--before DIR` (another tree's
 `results/dryrun_torch/`, e.g. a parent commit unpacked by `git archive`
 and run the same way), one row per arch on 16 x 16 instead: the peak GB
 and FLOPs at train_4k, prefill_32k and decode_32k, before -> after.
+With `--variant V` alone (a perf variant of `launch/dryrun.py`, traced
+with `--variant V`), one row per cell the variant has a record of: its
+all-reduces, all-gathers, FLOPs and peak GB a rank, the baseline's (the
+same cell without the variant) -> the variant's.
 
     PYTHONPATH=src python3 scripts/dryrun_table.py [--variant V] [--before DIR]
 """
@@ -63,6 +67,39 @@ def before_after(before: Path, archs, cell_path, variant: str) -> int:
     return 0
 
 
+def _counts(rec) -> tuple:
+    c = rec["collective_counts"]
+    return (c.get("all-reduce", 0), c.get("all-gather", 0),
+            f"{rec['flops_per_device']:.6e}",
+            f"{rec['memory']['peak_memory_in_bytes'] / 1e9:.3f}")
+
+
+def variant_vs_base(archs, shapes, cell_path, variant: str) -> int:
+    """Every cell with a record of `variant`: the baseline's counts ->
+    the variant's."""
+    print("| arch | shape | mesh | all-reduce | all-gather | FLOP a rank | "
+          "peak GB a rank |")
+    print("| --- | --- | --- | --- | --- | --- | --- |")
+    for arch in archs:
+        for shape in shapes:
+            for mp, mesh in zip((False, True), MESHES):
+                path = cell_path(arch, shape, mp, variant)
+                if not path.exists():
+                    continue
+                base = cell_path(arch, shape, mp, "")
+                recs = [json.loads(q.read_text()) if q.exists() else None
+                        for q in (base, path)]
+                if not all(r and r.get("ok") and "skipped" not in r
+                           for r in recs):
+                    print(f"| {arch} | {shape} | {mesh} | "
+                          + " | ".join(["not run or failed"] * 4) + " |")
+                    continue
+                cols = zip(*(_counts(r) for r in recs))
+                print(f"| {arch} | {shape} | {mesh} | "
+                      + " | ".join(f"{a} -> {b}" for a, b in cols) + " |")
+    return 0
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.common.config import SHAPES
@@ -75,6 +112,9 @@ def main() -> int:
     args = ap.parse_args()
     if args.before is not None:
         return before_after(args.before, ARCHS, cell_path, args.variant)
+    if args.variant:
+        return variant_vs_base(ARCHS, [s.name for s in SHAPES], cell_path,
+                               args.variant)
     print("| arch | mesh | " + " | ".join(
         f"{s.name}: peak GB, FLOP, collective B, trace s" for s in SHAPES)
         + " |")

@@ -188,19 +188,33 @@ def mlp(x: torch.Tensor, p: dict, act: str) -> torch.Tensor:
 _FSDP_DIM = {"w_gate": 0, "w_up": 0, "w_in": 0, "w_down": 1, "w_out": 1}
 
 
+def _cols_over_model(p: dict, d_ff: int) -> bool:
+    """Whether this rank's MLP params hold a share of the hidden columns
+    (`d_ff` whole), i.e. are over "model"."""
+    return (p["w_gate"] if "w_gate" in p else p["w_in"]).shape[-1] < d_ff
+
+
 def sharded_mlp(x: torch.Tensor, p: dict, act: str, d_ff: int,
-                mctx: Optional[MeshCtx]) -> torch.Tensor:
+                mctx: Optional[MeshCtx], reduce: bool = True) -> torch.Tensor:
     """`mlp` on one layer's local MLP params, cast to x's dtype: the fsdp
     dim gathered over "data" where it is sharded; where the hidden
     columns (`d_ff` whole) are over "model", column-parallel in and
-    row-parallel out, the partial outputs summed over "model"."""
+    row-parallel out, the partial outputs summed over "model" (with
+    `reduce` False, left to `mlp_sum`)."""
     cdt = x.dtype
     w = {k: gather_fsdp(v, _FSDP_DIM[k], mctx, x.shape[-1]).to(cdt)
          for k, v in p.items()}
-    cols = (w["w_gate"] if "w_gate" in w else w["w_in"]).shape[-1]
-    if cols < d_ff:
-        return reduce_from_model(mlp(copy_to_model(x, mctx), w, act), mctx)
+    if _cols_over_model(p, d_ff):
+        y = mlp(copy_to_model(x, mctx), w, act)
+        return reduce_from_model(y, mctx) if reduce else y
     return mlp(x, w, act)
+
+
+def mlp_sum(y: torch.Tensor, p: dict, d_ff: int,
+            mctx: Optional[MeshCtx]) -> torch.Tensor:
+    """`sharded_mlp`'s output from what it returns with `reduce` False:
+    summed over "model" where p's hidden columns are over it."""
+    return reduce_from_model(y, mctx) if _cols_over_model(p, d_ff) else y
 
 
 # ---------------------------------------------------------------------------

@@ -42,7 +42,8 @@ float8_e4m3fn rule (`to_dispatch`). The reference drops an assignment by
 writing it at an out-of-bounds slot (`mode="drop"`), which on a CUDA
 tensor would be a device-side assert; the port writes it to a spare row
 past the end of the buffer and cuts that row off (`_scatter`), which
-needs no host sync.
+needs no host sync; a received local expert id outside [0, e_per) drops
+its row too, as -1 does.
 """
 from __future__ import annotations
 
@@ -148,11 +149,13 @@ def _local_experts(w: torch.Tensor, r: int, e_per: int, whole: int,
 
 
 def moe_ffn(x: torch.Tensor, p: Dict[str, Any], cfg: ModelConfig,
-            mctx: MeshCtx) -> torch.Tensor:
+            mctx: MeshCtx, reduce: bool = True):
     """x (B, S, D) -> (B, S, D). p is one layer's MoE param slice: on a
     mesh its local shard (rank r's experts) or whole; x is this rank's
     block of the batch, and model rank r runs experts [r * e_per, (r + 1)
-    * e_per)."""
+    * e_per). With `reduce` False, what comes before the output's
+    collectives, for `moe_sum`: this rank's token slice's outputs, and
+    the shared experts' partial output (None without them)."""
     mc = cfg.moe
     mesh = None if mctx is None else mctx.device_mesh
     ep = 1 if mesh is None else mctx.tp_size()
@@ -213,7 +216,10 @@ def moe_ffn(x: torch.Tensor, p: Dict[str, Any], cfg: ModelConfig,
 
     # --- second-level dispatch: local expert grouping ---
     pos2 = _slots(rle, e_per)
-    valid2 = (rle >= 0) & (pos2 < cap2)
+    # an id past the local experts, which no real exchange delivers (a fake
+    # group's leaves the buffer as the allocator held it), drops its row as
+    # -1 does: indexed, it would be a device-side assert
+    valid2 = (rle >= 0) & (rle < e_per) & (pos2 < cap2)
     le_c = torch.where(valid2, rle, 0)
     buf = _scatter(e_per * cap2, le_c * cap2 + pos2, valid2,
                    rx).reshape(e_per, cap2, D)
@@ -231,8 +237,28 @@ def moe_ffn(x: torch.Tensor, p: Dict[str, Any], cfg: ModelConfig,
     ya = back[dest, pos_c] * keep[:, None].to(cdt)              # (Tl*K, D)
     out = torch.sum(ya.reshape(Tl, K, D) * gates[..., None].to(cdt), dim=1)
 
+    if not reduce:
+        return out, (L.sharded_mlp(xt, p["shared"], cfg.act,
+                                   mc.n_shared * mc.d_ff_expert, mctx,
+                                   reduce=False)
+                     if "shared" in p else None)
     out = gather_from_model(out, 0, mctx)[:T]                   # (T, D)
     if "shared" in p:
         out = out + L.sharded_mlp(xt, p["shared"], cfg.act,
                                   mc.n_shared * mc.d_ff_expert, mctx)
+    return out.reshape(B, S, D)
+
+
+def moe_sum(part, p: Dict[str, Any], cfg: ModelConfig, mctx: MeshCtx,
+            shape) -> torch.Tensor:
+    """`moe_ffn`'s output of `shape` (B, S, D) from what it returns with
+    `reduce` False: the token slices' outputs gathered over "model", plus
+    the shared experts' output, summed there."""
+    out, shared = part
+    B, S, D = shape
+    out = gather_from_model(out, 0, mctx)[:B * S]
+    if shared is not None:
+        mc = cfg.moe
+        out = out + L.mlp_sum(shared, p["shared"],
+                              mc.n_shared * mc.d_ff_expert, mctx)
     return out.reshape(B, S, D)

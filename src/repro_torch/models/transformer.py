@@ -32,7 +32,10 @@ whose gradient is each rank's part (qk-norms and kv projections shared by
 heads on several ranks) take it summed over "model" (`copy_to_model`).
 fsdp leaves are gathered over "data" inside the layer (inside the
 checkpointed block, so remat gathers them again), and a decode step
-writes and reads the local kv heads of its cache.
+writes and reads the local kv heads of its cache. With remat_policy=
+"save_collectives" a layer's attention and FFN are checkpointed apart,
+each up to its output's collective over "model", which runs outside, so
+the backward's recompute skips it as the reference's policy does.
 """
 from __future__ import annotations
 
@@ -47,7 +50,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.context import (MeshCtx, copy_to_model,
                                         gather_fsdp, gather_from_model,
                                         reduce_from_model)
-from repro_torch.models.moe import moe_ffn
+from repro_torch.models.moe import moe_ffn, moe_sum
 from repro_torch.models.params import pdef
 
 
@@ -173,22 +176,31 @@ def _kv_heads(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig, hl: int,
     return k.index_select(2, sel), v.index_select(2, sel)
 
 
+def _heads_over_model(p, cfg: ModelConfig) -> bool:
+    """Whether this rank's attention params (a layer's local shard) hold
+    a share of the q heads, i.e. its output is a partial sum over
+    "model"."""
+    return (p["w_uq"] if cfg.mla is not None else p["w_q"]).shape[1] < \
+        cfg.n_heads
+
+
 def _gqa(x, p, cfg: ModelConfig, positions, mctx: MeshCtx = None, *,
-         cache=None, pos=None, window=None):
+         cache=None, pos=None, window=None, reduce=True):
     """x (B,T,D). Train/prefill when cache is None; decode otherwise.
 
     cache: dict(k=(B,S,KH,Dh), v=(B,S,KH,Dh)); pos: (B,) write positions.
     Decode writes k, v into the cache in place (the reference donates the
     cache across decode steps). Returns (out, new_cache_or_None). On a
     mesh p is the layer's local shard and the cache holds the kv heads
-    its spec gives this rank."""
+    its spec gives this rank; with `reduce` False, out is left as this
+    rank's partial sum over "model" (`_attn_sum`)."""
     cdt = x.dtype
     d = cfg.d_model
     w_q, w_k, w_v = (gather_fsdp(p[k], 0, mctx, d)
                      for k in ("w_q", "w_k", "w_v"))
     hl, khl = w_q.shape[1], w_k.shape[1]
     q_norm, k_norm = p.get("q_norm"), p.get("k_norm")
-    heads = hl < cfg.n_heads           # q heads over "model"
+    heads = _heads_over_model(p, cfg)
     if heads:
         x = copy_to_model(x, mctx)
         if cfg.qk_norm:
@@ -233,11 +245,12 @@ def _gqa(x, p, cfg: ModelConfig, positions, mctx: MeshCtx = None, *,
     H, hd, _ = w_o.shape
     out = out.reshape(*out.shape[:2], H * hd) @ w_o.reshape(
         H * hd, d).to(cdt)
-    return (reduce_from_model(out, mctx) if heads else out), new_cache
+    return (reduce_from_model(out, mctx) if heads and reduce
+            else out), new_cache
 
 
 def _mla(x, p, cfg: ModelConfig, positions, mctx: MeshCtx = None, *,
-         cache=None, pos=None):
+         cache=None, pos=None, reduce=True):
     """Multi-Head Latent Attention. The cache keeps only the latent (ckv)
     and the shared rotary key (krope).
 
@@ -246,7 +259,8 @@ def _mla(x, p, cfg: ModelConfig, positions, mctx: MeshCtx = None, *,
     scores and values in the latent space, scores in float32. Decode
     writes into the cache in place, as `_gqa` does. On a mesh the latent
     projections are computed whole on every rank and the heads
-    (`w_uq`, `w_uk`, `w_uv`, `w_o`) are this rank's."""
+    (`w_uq`, `w_uk`, `w_uv`, `w_o`) are this rank's; `reduce` as in
+    `_gqa`."""
     m = cfg.mla
     cdt = x.dtype
     B, T, d = x.shape
@@ -255,7 +269,7 @@ def _mla(x, p, cfg: ModelConfig, positions, mctx: MeshCtx = None, *,
     w_dq, w_dkv, w_kr = (gather_fsdp(p[k], 0, mctx, d)
                          for k in ("w_dq", "w_dkv", "w_kr"))
     H = p["w_uq"].shape[1]             # this rank's heads
-    heads = H < cfg.n_heads
+    heads = _heads_over_model(p, cfg)
 
     cq = L.rms_norm(x @ w_dq.to(cdt), p["q_ln"], cfg.rms_eps)
     ckv = L.rms_norm(x @ w_dkv.to(cdt), p["kv_ln"], cfg.rms_eps)
@@ -308,16 +322,17 @@ def _mla(x, p, cfg: ModelConfig, positions, mctx: MeshCtx = None, *,
     w_o = gather_fsdp(p["w_o"], 2, mctx, d)
     Hv, hv, _ = w_o.shape
     out = out.reshape(B, T, Hv * hv) @ w_o.reshape(Hv * hv, d).to(cdt)
-    return (reduce_from_model(out, mctx) if heads else out), new_cache
+    return (reduce_from_model(out, mctx) if heads and reduce
+            else out), new_cache
 
 
 # ---------------------------------------------------------------------------
 # Block + full forward
 
-def _ffn(x, p, cfg: ModelConfig, mctx: MeshCtx):
+def _ffn(x, p, cfg: ModelConfig, mctx: MeshCtx, reduce: bool = True):
     if cfg.family == "moe":
-        return moe_ffn(x, p, cfg, mctx)
-    return L.sharded_mlp(x, p, cfg.act, cfg.d_ff, mctx)
+        return moe_ffn(x, p, cfg, mctx, reduce)
+    return L.sharded_mlp(x, p, cfg.act, cfg.d_ff, mctx, reduce)
 
 
 def _block(x, bp, cfg: ModelConfig, mctx: MeshCtx, positions,
@@ -332,6 +347,54 @@ def _block(x, bp, cfg: ModelConfig, mctx: MeshCtx, positions,
     x = x + a
     h = L.rms_norm(x, bp["ln_mlp"], cfg.rms_eps)
     x = x + _ffn(h, bp["mlp"], cfg, mctx)
+    if mctx is not None:
+        x = mctx.constraint(x, mctx.batch_spec(None, None))
+    return x, new_cache
+
+
+# remat_policy="save_collectives": the reference names the attention's
+# and the FFN's outputs after their collectives ("attn_out", "ffn_out")
+# and keeps them (jax.checkpoint with save_only_these_names), so that the
+# backward's recompute runs none of the all-reduces after w_o and w_down
+# nor the MoE output's all-gather. Here each of the two is checkpointed
+# up to its partial output and its collective runs outside: a collective's
+# backward (`reduce_from_model`'s identity, `gather_from_model`'s slice)
+# keeps nothing, so what a layer keeps is the two pieces' inputs, the
+# layer's input and its input plus the attention's output.
+
+def _attn_partial(x, bp, cfg: ModelConfig, mctx: MeshCtx, positions):
+    h = L.rms_norm(x, bp["ln_attn"], cfg.rms_eps)
+    attn = _mla if cfg.mla is not None else _gqa
+    return attn(h, bp["attn"], cfg, positions, mctx, reduce=False)
+
+
+def _attn_sum(a, p, cfg: ModelConfig, mctx: MeshCtx):
+    return reduce_from_model(a, mctx) if _heads_over_model(p, cfg) else a
+
+
+def _ffn_partial(x, bp, cfg: ModelConfig, mctx: MeshCtx):
+    return _ffn(L.rms_norm(x, bp["ln_mlp"], cfg.rms_eps), bp["mlp"], cfg,
+                mctx, reduce=False)
+
+
+def _ffn_sum(f, p, cfg: ModelConfig, mctx: MeshCtx, shape):
+    if cfg.family == "moe":
+        return moe_sum(f, p, cfg, mctx, shape)
+    return L.mlp_sum(f, p, cfg.d_ff, mctx)
+
+
+def _checkpointed(fn, *args):
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _block_saving_collectives(x, bp, cfg: ModelConfig, mctx: MeshCtx,
+                              positions):
+    """`_block` (train and prefill) under remat with "save_collectives"."""
+    a, new_cache = _checkpointed(_attn_partial, x, bp, cfg, mctx, positions)
+    x = x + _attn_sum(a, bp["attn"], cfg, mctx)
+    f = _checkpointed(_ffn_partial, x, bp, cfg, mctx)
+    x = x + _ffn_sum(f, bp["mlp"], cfg, mctx, x.shape)
     if mctx is not None:
         x = mctx.constraint(x, mctx.batch_spec(None, None))
     return x, new_cache
@@ -392,18 +455,20 @@ def forward(params, tokens, cfg: ModelConfig, mctx: MeshCtx,
     T = tokens.shape[1]
     positions = torch.arange(T, device=x.device)
     # cfg.remat: each layer keeps only its input for the backward and runs
-    # again there (the reference's jax.checkpoint with nothing_saveable),
-    # its fsdp gathers and model all-reduces included. remat_policy=
-    # "save_collectives" keeps nothing more here: the reference would keep
-    # the outputs of the all-reduces after w_o and w_down, which one
-    # device never runs and a mesh recomputes.
+    # again there (the reference's jax.checkpoint with nothing_saveable)
+    # up to the inputs of its last product, which is as far as torch's
+    # checkpoint recomputes: its fsdp gathers and its attention's
+    # all-reduce included. With remat_policy="save_collectives" it keeps
+    # what the reference keeps, and the recompute runs no collective of
+    # "model" but the MoE's exchanges (`_block_saving_collectives`).
     remat = cfg.remat and torch.is_grad_enabled()
     caches = []
     for i in range(cfg.n_layers):
         bp = _layer(params["blocks"], i)
-        if remat:
-            x, c = checkpoint(_block, x, bp, cfg, mctx, positions,
-                              use_reentrant=False, preserve_rng_state=False)
+        if remat and cfg.remat_policy == "save_collectives":
+            x, c = _block_saving_collectives(x, bp, cfg, mctx, positions)
+        elif remat:
+            x, c = _checkpointed(_block, x, bp, cfg, mctx, positions)
         else:
             x, c = _block(x, bp, cfg, mctx, positions)
         if collect_cache:

@@ -36,9 +36,12 @@ from repro_torch.models.context import make_mesh, mesh_ctx  # noqa: E402
 from repro_torch.models.params import (_leaves,  # noqa: E402
                                        params_from_numpy, params_to_numpy,
                                        tree_map)
+from repro_torch.roofline.collectives import (collective_count,  # noqa: E402
+                                              count_step)
 from repro_torch.train import optimizer as opt  # noqa: E402
 from repro_torch.train.trainer import (jit_decode_step,  # noqa: E402
-                                       jit_prefill_step, jit_train_step)
+                                       jit_prefill_step, jit_train_step,
+                                       placed)
 
 
 def _cfg(spec: dict):
@@ -59,6 +62,14 @@ def _placements(t):
     return [("S", p.dim) if p.is_shard() else ("R",) for p in t.placements]
 
 
+def _state(state: dict):
+    """The params and AdamState of one of the reference's states."""
+    return (params_from_numpy(state["params"], device="cpu"),
+            opt.AdamState(torch.tensor(state["step"], dtype=torch.int32),
+                          params_from_numpy(state["m"], device="cpu"),
+                          params_from_numpy(state["v"], device="cpu")))
+
+
 def train(job, rank, during=contextlib.nullcontext):
     """From each of the reference's states, one jit_train_step on the
     (data, model) mesh, run inside `during()` (given the params it
@@ -72,10 +83,7 @@ def train(job, rank, during=contextlib.nullcontext):
     out = []
     for state, batch in zip(job["states"], job["batches"]):
         step = jit_train_step(api, tcfg, mctx, shape)
-        params = params_from_numpy(state["params"], device="cpu")
-        adam = opt.AdamState(torch.tensor(state["step"], dtype=torch.int32),
-                             params_from_numpy(state["m"], device="cpu"),
-                             params_from_numpy(state["v"], device="cpu"))
+        params, adam = _state(state)
         with during() as stepped:
             params, adam, metrics = step(params, adam, batch)
             if stepped is not None:
@@ -242,7 +250,33 @@ def tp(job, rank):
         steps.append({"gathers": gathers.seen, "storages": storages,
                       "full_tensor_calls": calls})
     return {"train": train(job, rank, recorded), "steps": steps,
-            "serve": serve(job["serve"], rank) if "serve" in job else None}
+            "serve": serve(job["serve"], rank) if "serve" in job else None,
+            "policies": policies(job, rank) if job.get("policies") else None}
+
+
+def policies(job, rank):
+    """From the reference's first state, one jit_train_step body under
+    each remat policy, run under the dry-run's recorder
+    (`roofline.collectives.count_step` on real tensors): its collectives
+    by kind, its loss, and the params and moments after it (whole)."""
+    cfg = _cfg(job["cfg"])
+    mctx = make_host_mesh_ctx(cfg, *job["mesh"], device="cpu")
+    tcfg = TrainConfig(**job["tcfg"])
+    shape = ShapeConfig("t", job["seq"], job["batch"], "train")
+    batch = {k: torch.from_numpy(v) for k, v in job["batches"][0].items()}
+    out = {}
+    for policy in ("nothing", "save_collectives"):
+        api = ModelAPI(cfg.replace(remat_policy=policy), device="cpu")
+        step = jit_train_step(api, tcfg, mctx, shape)
+        counted = count_step(step.step.trace, *placed(
+            step, *_state(job["states"][0]), batch))
+        params, adam, metrics = counted.outputs
+        out[policy] = {"collectives": collective_count(counted.collectives),
+                       "loss": float(metrics["loss"]),
+                       "params": tree_map(_host, params),
+                       "m": tree_map(_host, adam.m),
+                       "v": tree_map(_host, adam.v)}
+    return out
 
 
 CASES = {"train": train, "moe": moe, "gpipe": gpipe, "serve": serve,

@@ -346,6 +346,59 @@ def test_tensor_parallel_trace():
     assert fsdp["reduce-scatter"] >= 2 * (2 * 7 + 2)
 
 
+SAVE_COLL = """
+import json
+from repro_torch.common.config import ShapeConfig
+from repro_torch.configs import tiny_config
+from repro_torch.launch import dryrun
+from repro_torch.models.params import MeshShape
+train = ShapeConfig("tiny_train", 32, 8, "train")
+out = {}
+for arch in ("gemma-7b", "deepseek-v2-236b", "recurrentgemma-2b",
+             "rwkv6-1.6b", "llama-3.2-vision-90b", "whisper-tiny"):
+    out[arch] = {v or "base": dryrun.trace_cell(
+        dryrun.apply_variant(tiny_config(arch), v)[0], train,
+        MeshShape(("data", "model"), (2, 2)), 2) for v in ("", "save-coll")}
+print(json.dumps(out))
+"""
+
+
+def test_save_collectives_trace():
+    """The variant "save-coll" (remat_policy="save_collectives") on a fake
+    (2, 2) mesh, 2 microbatches of 2 rows a rank. The dense and moe
+    steps: a layer's recompute, in each microbatch, no longer runs the
+    all-reduce after w_o (nor, for deepseek's moe layer with shared
+    experts, the all-gather of the routed output), and no longer makes
+    w_o's product, which only the collective read (torch's checkpoint
+    stops a recompute once it has made what the backward keeps: the
+    inputs of a piece's last product); every other count stays. The
+    hybrid, ssm, vlm and encdec families keep no collective, as the
+    reference's use nothing_saveable whatever the policy: their records
+    are the baseline's."""
+    out = _result(_run(SAVE_COLL), timeout=300)
+    for arch in ("gemma-7b", "deepseek-v2-236b"):
+        cfg = tiny_config(arch)
+        base, save = out[arch]["base"], out[arch]["save-coll"]
+        per = cfg.n_layers * NMB                    # layer-microbatches
+        hv = cfg.mla.v_head_dim if cfg.mla else cfg.head_dim
+        rows = 8 // 2 // NMB
+        w_o = 2 * rows * 32 * (cfg.n_heads // 2) * hv * cfg.d_model
+        assert base["flops_per_device"] - save["flops_per_device"] == \
+            per * w_o, arch
+        fewer = {k: n - save["collective_counts"].get(k, 0)
+                 for k, n in base["collective_counts"].items()}
+        assert fewer == {k: per if k == "all-reduce"
+                         or (k == "all-gather" and cfg.moe) else 0
+                         for k in fewer}, (arch, fewer)
+    for arch in ("recurrentgemma-2b", "rwkv6-1.6b", "llama-3.2-vision-90b",
+                 "whisper-tiny"):
+        base, save = out[arch]["base"], out[arch]["save-coll"]
+        for key in ("flops_per_device", "flops_by_op", "bytes_per_device",
+                    "collective_counts", "collective_bytes_per_device",
+                    "memory"):
+            assert base[key] == save[key], (arch, key)
+
+
 GLOO_VS_FAKE = """
 import json, tempfile, os
 import torch, torch.distributed as dist

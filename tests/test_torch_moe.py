@@ -22,9 +22,15 @@ skewed routing that overflows `cap2` (and, at a capacity factor below 1,
 `cap`), and with exact ties among the top-k candidates, where the lower
 expert index must win as in `lax.top_k`. The float8_e4m3fn dispatch cast
 is bit-exact with JAX's `astype`, whose NaN above 464 torch's saturating
-cast lacks. MLA never reaches the flash-attention wrapper.
+cast lacks. MLA never reaches the flash-attention wrapper. A received
+local expert id outside the rank's experts drops its row.
 """
 import dataclasses
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import ml_dtypes
 import numpy as np
@@ -444,3 +450,69 @@ def test_flash_reaches_the_kernel_for_gqa_and_never_for_mla(name):
         flash_ops.flash_attention = real
     expect = api.cfg.n_layers if api.cfg.mla is None else 0
     assert (n_prefill, len(calls)) == (expect, expect)
+
+
+UNWRITTEN_EXCHANGE = r"""
+import json
+import torch, torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from repro_torch.configs import tiny_config
+from repro_torch.models import moe as M
+from repro_torch.models import transformer
+from repro_torch.models.context import MeshCtx, make_rules
+from repro_torch.models.params import init_params
+dist.init_process_group("fake", rank=0, world_size=4, store=FakeStore())
+mesh = init_device_mesh("cpu", (1, 4), mesh_dim_names=("data", "model"))
+real = M._exchange
+
+
+def unwritten(x, group):
+    # what the receive buffer may hold when no bytes arrive in it: here
+    # every id is 0x7f7f7f7f7f7f7f7f, far past the local experts
+    out = real(x, group)
+    out.view(torch.uint8).fill_(0x7F)
+    return out
+
+
+M._exchange = unwritten
+out = {}
+for name in ("dbrx-132b", "deepseek-v2-236b"):
+    cfg = tiny_config(name)
+    mctx = MeshCtx(device=torch.device("cpu"), mesh=mesh,
+                   rules=make_rules(cfg))
+    params = init_params(transformer.param_defs(cfg),
+                         torch.Generator().manual_seed(0), device="cpu")
+    p = transformer._layer(params["blocks"]["mlp"], 0)
+    for leaf in (p["router"], *p["experts"].values()):
+        leaf.requires_grad_(True)
+    x = torch.randn(2, 8, cfg.d_model, requires_grad=True)
+    y = M.moe_ffn(x, p, cfg, mctx)
+    y.float().sum().backward()
+    out[name] = [list(y.shape), list(x.grad.shape),
+                 list(p["router"].grad.shape)]
+print(json.dumps(out))
+dist.destroy_process_group()
+"""
+
+
+def test_received_ids_outside_the_local_experts_drop_their_rows(tmp_path):
+    """A receive buffer's local expert ids at or past the rank's e_per
+    (what an exchange that writes nothing, as torch's fake process group's
+    does, leaves in the buffer `_exchange` makes) drop their rows, as an
+    id of -1 does, in the forward and the backward: the second-level
+    scatter and the gather back index no row past the experts' buffer
+    (on the CPU an IndexError; on the card a device-side assert, which
+    ends the process). A real exchange never delivers such an id, so
+    nothing else changes. On 4 fake model ranks, both tiny moe configs."""
+    env = dict(os.environ, PYTHONPATH=str(
+        Path(__file__).resolve().parent.parent / "src"))
+    r = subprocess.run([sys.executable, "-W", "ignore", "-c",
+                        UNWRITTEN_EXCHANGE], env=env, capture_output=True,
+                       text=True, timeout=240, cwd=tmp_path)
+    assert r.returncode == 0, r.stderr[-3000:]
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    for name in NAMES:
+        cfg = tiny_config(name)
+        assert out[name] == [[2, 8, cfg.d_model], [2, 8, cfg.d_model],
+                             [cfg.d_model, cfg.moe.n_experts]], name

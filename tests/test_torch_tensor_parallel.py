@@ -21,8 +21,11 @@ the first and the third):
   `tests/test_torch_multidevice.py` runs it (capacities depend on the
   model ranks, so with drops the two would compute different functions).
 
-Also: prefill and two decode steps of each config on both meshes at the
-multi-device tests' 1e-4; a structure check of every step (no
+Also: granite, nemotron, deepseek and dbrx from the first state under
+each remat policy, counted by the dry-run's recorder: "save_collectives"
+gives the same state as "nothing" with fewer collectives in the
+backward's recompute; prefill and two decode steps of each config on
+both meshes at the multi-device tests' 1e-4; a structure check of every step (no
 `full_tensor()`, no all-gather of a param's shard over "model", and an
 all-gather of a param's shard over "data" only of one layer of it); and
 the port's gemma on (2, 2) against the reference's own compiled step on
@@ -46,6 +49,7 @@ from repro.models.context import single_device_ctx as ref_ctx
 from repro.models.params import init_params as ref_init_params
 from repro.train import optimizer as ropt
 from repro.train.trainer import make_train_step as ref_make_train_step
+from repro_torch.configs import tiny_config
 from test_torch_multidevice import (B, LR, ROOT, T, TOL, _assert_tree_close,
                                     _batch, _np, _ranks, _ref_cfg, _rel,
                                     _shard)
@@ -64,6 +68,8 @@ CASES = {
     "dbrx": ("dbrx-132b", dict(fsdp=True), FLOAT32_WIRE, 1),
 }
 PROMPT, GROW = 12, 4
+# the cases also stepped once under each remat policy
+POLICY_CASES = ("granite", "nemotron", "deepseek", "dbrx")
 
 
 def _reference(case):
@@ -107,6 +113,7 @@ def _reference(case):
     spec = {"name": arch, "over": over, "moe": moe}
     job = {"cfg": spec, "tcfg": tcfg, "seq": T, "batch": B,
            "states": states, "batches": batches,
+           "policies": case in POLICY_CASES,
            "serve": {"cfg": spec, "params": params, "tokens": toks,
                      "grow": GROW, "decode": steps}}
     return job, {"train": results, "prefill": np.asarray(logits),
@@ -183,6 +190,48 @@ def test_prefill_and_decode_logits(runs, case, mesh):
         for i, w in enumerate(want["decode"]):
             np.testing.assert_allclose(s["decode"][i], w, **TOL,
                                        err_msg=f"rank {r} step {i}")
+
+
+def _tree_equal(got, want, what: str):
+    """Bit for bit, leaf by leaf."""
+    for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want),
+                    strict=True):
+        assert np.asarray(g).tobytes() == np.asarray(w).tobytes(), what
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=["dp2_tp2", "tp4"])
+@pytest.mark.parametrize("case", POLICY_CASES)
+def test_save_collectives_policy_on_the_mesh(runs, case, mesh):
+    """One step from the first state under remat_policy="save_collectives"
+    leaves the loss, params and moments bit for bit as "nothing" does on
+    every rank, and its backward's recompute runs fewer collectives over
+    "model": each layer of each microbatch skips the all-reduce after
+    w_o where the q heads are over "model" (its attention's output is a
+    partial sum), and a moe layer with shared experts skips the
+    all-gather of its routed output. Under "nothing" the recompute of a
+    layer already stops at its last kept tensor, the inputs of its last
+    product (torch.utils.checkpoint's early stop), so it never ran the
+    collective after w_down, nor the gather of a moe output with nothing
+    after it (dbrx). The all-to-alls and the fsdp gathers, needed to
+    recompute the experts' and the layer's products, stay."""
+    arch, over, moe, nmb = CASES[case]
+    cfg = tiny_config(arch).replace(**over)
+    tp = mesh[1]
+    per = cfg.n_layers * nmb if tp > 1 else 0
+    skipped = {"all-reduce": per if cfg.n_heads % tp == 0 else 0,
+               "all-gather": per if cfg.moe and cfg.moe.n_shared else 0}
+    assert skipped["all-reduce"] > 0
+    _, ranks = runs[(case, mesh)]
+    for r, got in enumerate(ranks):
+        base, save = (got["policies"][k] for k in ("nothing",
+                                                   "save_collectives"))
+        assert save["loss"] == base["loss"], r
+        for key in ("params", "m", "v"):
+            _tree_equal(save[key], base[key], f"{key} on rank {r}")
+        kinds = set(base["collectives"]) | set(save["collectives"])
+        fewer = {k: base["collectives"].get(k, 0)
+                 - save["collectives"].get(k, 0) for k in kinds}
+        assert fewer == {k: skipped.get(k, 0) for k in kinds}, (r, fewer)
 
 
 def _group(rank: int, mesh, axis: str) -> list:
