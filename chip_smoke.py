@@ -79,6 +79,32 @@ result):
                stripes parity-scrubbed — every read bit-exact; the card's
                idle share is traced over a 64 MiB window of the degraded
                read and of full-stripe writes;
+  4(b). soak  the reference's seeded crash-recovery soak (its ec8 case,
+               tests/test_fault_storage.py) on the card, async: a client as
+               in phase 4 (n_devices 4) with io_depth 8 and a FaultInjector
+               holding a copy of the reference's schedule (seeds 1234 and
+               99, plus --seed), a 256 MiB file, 240 ops of 1 B to 2.5 MiB
+               (writes, reads, vectored write+read pairs) issued through
+               submit_pwritev and submit_preadv, up to 8 in flight over
+               pairwise disjoint whole stripes (a partial write's parity
+               read-modify-write would race a neighbour's on one stripe);
+               the busiest data home failed at op 80 with its map push
+               dropped, recovered at op 96; engine.crash, cap.expire and a
+               dropped get_pool_map armed. Every read bit-exact against a
+               shadow copy, then a sweep of the file, then the whole file
+               placed on the card by DeviceDirectSink in 4 MiB tensors,
+               each held against the shadow with torch.equal on the card;
+               resync, an empty dirty ledger, a parity scrub with no
+               mismatch; every recovery class of the reference soak fired;
+               rs_matmul's encode, delta and decode launched, from more
+               than one host thread; the CQ's in-flight peak at least 4
+               and completed = submitted - cancelled; no leaked slot,
+               lease, rkey grant or handle; ops/s, MB/s and one traced
+               64 MiB async window's idle share printed;
+  4(c). examples  examples/torch_smartnic_offload_demo.py and
+               examples/torch_quickstart.py run as a user runs them, on
+               the card (the demo's tensor placed there, the quickstart's
+               loss falling);
   5. direct    the same stream placed into GPU memory by DeviceDirectSink
                as 256 float32 tensors of 4 MiB plus odd-sized tensors at
                misaligned offsets, compared byte for byte on the card; then
@@ -301,7 +327,7 @@ result):
                and power limit.
 
 Each kernel's launch counts are zeroed just before the path that drives it
-(rs_matmul: the ec phase; stream_cipher and fletcher: the step on the
+(rs_matmul: the ec phase, and again the soak's ops; stream_cipher and fletcher: the step on the
 placed stream; flash_attention_fwd: each of the granite, dbrx and VLM
 serve phases and the mesh phase's steps (a), (c) and (d), and its
 launches are their sum; rglru_scan and wkv6: their serve phases, their
@@ -326,6 +352,7 @@ import sys
 import time
 import traceback
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -783,6 +810,360 @@ def ec_phase(client, size: int, seed: int, times: dict) -> bytearray:
     print("ec counters:", client.io.data_path_counters()["ec"])
     client.close_fd(fd)
     return expect
+
+
+# -- phase 4(b): the async ec(4,2) soak ----------------------------------------
+SOAK_SPAN = 256 * MiB       # the reference's ec8 soak (16 MiB) scaled up
+SOAK_OPS = 240              # the reference's op count
+SOAK_DEPTH = 8              # io_depth: handles in flight at once
+SOAK_SEEDS = (1234, 99)     # the reference's injector and op seeds
+
+
+def soak_schedule(Fault) -> list:
+    """The reference soak's fault schedule (tests/test_fault_storage.py
+    SOAK_SCHEDULE), copied: modulo rules whose retry never re-fires on the
+    next match, at every layer boundary of the rdma path."""
+    return [
+        ("transport.write_sg", Fault("error"), lambda m: m % 23 == 5),
+        ("transport.read_sg", Fault("error"), lambda m: m % 17 == 4),
+        ("transport.read_sg", Fault("partial"), lambda m: m % 31 == 9),
+        ("transport.place_sg", Fault("partial"), lambda m: m % 19 == 6),
+        ("media.write", Fault("error",
+                              exc=lambda: IOError("injected media write")),
+         lambda m: m % 97 == 13),
+        ("media.read", Fault("error",
+                             exc=lambda: IOError("injected media read")),
+         lambda m: m % 61 == 9),
+    ]
+
+
+def _assert_rings_whole(client) -> None:
+    """Nothing leaked: once writebacks land every donated lease has
+    dropped, every staging slot is back on its free list, no rkey grant
+    outlived its op, and no completion handle is pending."""
+    deadline = time.monotonic() + 10.0
+    while time.monotonic() < deadline:
+        for t in client.cluster.targets:
+            for d in t.store.devices:
+                if d.alive:
+                    d.writeback()
+        if all(not s.ring.donated_slots()
+               for s in client.io.sessions.values()):
+            break
+        time.sleep(0.005)
+    for s in client.io.sessions.values():
+        check(not s.ring.donated_slots(), "donated slot leases leaked")
+        with s.ring._cv:
+            check(sorted(s.ring._free) == list(range(s.ring.n_slots)),
+                  "staging ring free list not whole")
+        check(not s._dst_rkeys, "dst rkey cache entries leaked")
+        check(s.cq.inflight() == 0, "a session's handle is pending")
+    check(not client.client_registry._rkeys, "client rkey grant leaked")
+    check(client.io.cq.inflight() == 0, "a router handle is pending")
+
+
+class _SoakWindow:
+    """Up to `depth` async ops in flight, over pairwise disjoint ranges of
+    whole 1 MiB stripes (a partial write read-modify-writes its stripe's
+    parity, so two in flight on one stripe would race there, in the
+    reference as in the port), so the shadow copy stays exact: a write
+    updates the shadow when it is submitted, a read is checked against the
+    shadow as it stood then. A vectored pair's read is submitted when its
+    write is reaped, over the same still-reserved range."""
+
+    def __init__(self, client, fd: int, shadow: bytearray, depth: int,
+                 block: int):
+        self.c, self.fd, self.shadow = client, fd, shadow
+        self.depth, self.block = depth, block
+        self.live: list = []        # (handle, kind, off, n, blocks, extra)
+        self.reaped = {"write": 0, "read": 0, "pair": 0, "bytes": 0}
+
+    def _blocks(self, off: int, n: int) -> range:
+        return range(off // self.block, (off + n - 1) // self.block + 1)
+
+    def _reap(self, entry) -> None:
+        self.live.remove(entry)
+        h, kind, off, n, blocks, extra = entry
+        got = h.wait()
+        self.reaped["bytes"] += n
+        if kind == "read":
+            check(b"".join(got) == extra, f"soak read at {off}+{n} differs")
+            self.reaped["read"] += 1
+            return
+        check(got == n, f"soak write at {off}+{n} returned {got}")
+        self.reaped["write"] += 1
+        if kind == "pair":                  # the pair's read, same range
+            cut, data = extra
+            h2 = self.c.submit_preadv(self.fd, [cut, n - cut], off)
+            self.live.append((h2, "read", off, n, blocks, data))
+            self.reaped["pair"] += 1
+
+    def _room(self, blocks: range) -> None:
+        while True:          # a reaped pair's read reserves its range again
+            near = [e for e in self.live if e[4].start < blocks.stop
+                    and blocks.start < e[4].stop]
+            if not near:
+                break
+            self._reap(near[0])
+        while len(self.live) >= self.depth:
+            self._reap(self.live[0])
+
+    def write(self, off: int, data: bytes, cut: Optional[int] = None):
+        blocks = self._blocks(off, len(data))
+        self._room(blocks)
+        bufs = [data] if cut is None else [data[:cut], data[cut:]]
+        h = self.c.submit_pwritev(self.fd, bufs, off)
+        self.shadow[off:off + len(data)] = data
+        self.live.append((h, "write" if cut is None else "pair", off,
+                          len(data), blocks, None if cut is None
+                          else (cut, data)))
+
+    def read(self, off: int, n: int) -> None:
+        blocks = self._blocks(off, n)
+        self._room(blocks)
+        cut = max(1, n // 3)
+        h = self.c.submit_preadv(self.fd, [cut, n - cut], off)
+        self.live.append((h, "read", off, n, blocks,
+                          bytes(self.shadow[off:off + n])))
+
+    def drain(self) -> None:
+        while self.live:
+            self._reap(self.live[0])
+
+
+def _soak_ops(win: _SoakWindow, rng, n_ops: int, span: int, block: int,
+              outage: tuple) -> None:
+    """The reference soak's op stream at `span` (lengths 1 B to 2.5
+    blocks; writes, reads and vectored pairs), through the async window;
+    the target `outage[2]` failed at op `outage[0]` with its map push
+    dropped and recovered at op `outage[1]`."""
+    fail_at, recover_at, vic, inj, Fault, cluster = outage
+    for i in range(n_ops):
+        if i == fail_at:
+            win.drain()
+            inj.arm("map.push", Fault("drop"), 1)
+            cluster.fail_target(vic)
+        elif i == recover_at:
+            win.drain()
+            cluster.recover_target(vic)
+        off = int(rng.integers(0, span - 1))
+        ln = int(rng.integers(1, min(int(2.5 * block), span - off) + 1))
+        kind = int(rng.integers(0, 4))
+        if kind == 2:
+            win.read(off, ln)
+        else:
+            data = rng.bytes(ln)
+            win.write(off, data, max(1, ln // 3) if kind == 3 else None)
+    win.drain()
+
+
+def soak_phase(seed: int, times: dict, device: str = "cuda",
+               span: int = SOAK_SPAN, n_ops: int = SOAK_OPS) -> dict:
+    """Phase 4(b): the reference's seeded crash-recovery soak (its ec8
+    variant) at `span`, async, on a client whose parity kernel runs on
+    `device`."""
+    import torch
+    from repro_torch.core import ROS2Client
+    from repro_torch.core.device_direct import DeviceDirectSink
+    from repro_torch.core.dfs import BLOCK
+    from repro_torch.core.faults import Fault, FaultInjector
+    from repro_torch.kernels.rs_parity import ops
+
+    inj = FaultInjector(schedule=soak_schedule(Fault),
+                        seed=SOAK_SEEDS[0] + seed)
+    c = ROS2Client(mode="host", transport="rdma", n_targets=8,
+                   domains=DOMAINS, ec=(4, 2), n_devices=4, replication=3,
+                   write_quorum=2, inline_encryption=True,
+                   io_depth=SOAK_DEPTH, scrub_interval_s=None,
+                   fault_injector=inj, device=device)
+    out: dict = {}
+    try:
+        k, p, cs = c.io._ec
+        fd = c.open("/soak", create=True)
+        shadow = bytearray(span)
+        t0 = time.perf_counter()
+        for off in range(0, span, 16 * MiB):
+            c.pwrite(fd, bytes(16 * MiB), off)      # materialize the file
+        out["materialize_s"] = time.perf_counter() - t0
+        print(f"soak: {span // MiB} MiB materialized in "
+              f"{out['materialize_s']:.3f} s")
+        # the busiest data home: at 8 targets a fixed victim may home
+        # only parity (the reference soak picks it the same way)
+        oid = sorted({o for cont in c.ccontainer._per_target.values()
+                      for o in cont._objects})[0]
+        homes = {}
+        for b in range(span // BLOCK):
+            for tid in c.io._ec_order(oid, b)[:k]:
+                homes[tid] = homes.get(tid, 0) + 1
+        vic = max(sorted(homes), key=homes.get)
+        # must-fire singles armed after bring-up, as the reference does
+        inj.arm("engine.crash", Fault("crash"), 4)
+        inj.arm("cap.expire", Fault("expire"), 3)
+        inj.arm("control.rpc.get_pool_map", Fault("drop"), 1)
+        ops.reset_launches()
+        win = _SoakWindow(c, fd, shadow, SOAK_DEPTH, BLOCK)
+        rng = np.random.default_rng(SOAK_SEEDS[1] + seed)
+        t0 = time.perf_counter()
+        _soak_ops(win, rng, n_ops, span, BLOCK,
+                  (n_ops // 3, n_ops // 3 + 16, vic, inj, Fault, c.cluster))
+        wall = time.perf_counter() - t0
+        out["soak"] = {"ops": n_ops, "wall_s": wall, **win.reaped,
+                       "ops_per_s": n_ops / wall,
+                       "MB_per_s": win.reaped["bytes"] / wall / 1e6,
+                       "victim": vic}
+        print(f"soak: {n_ops} async ops over {span // MiB} MiB in "
+              f"{wall:.3f} s: {n_ops / wall:.3f} ops/s, "
+              f"{win.reaped['bytes'] / wall / 1e6:.3f} MB/s, "
+              f"{win.reaped}; target {vic} failed at op {n_ops // 3}, "
+              f"recovered at op {n_ops // 3 + 16}")
+        t0 = time.perf_counter()
+        check(_read_equal(c, fd, shadow), "soak sweep differs")
+        out["sweep_s"] = time.perf_counter() - t0
+        print(f"soak sweep: {span // MiB} MiB bit-exact against the shadow "
+              f"in {out['sweep_s']:.3f} s")
+
+        # the whole span placed into the card's memory, held there
+        t0 = time.perf_counter()
+        tb = 4 * MiB
+        reqs = [(fd, i * tb, (tb,), np.uint8) for i in range(span // tb)]
+        want = torch.frombuffer(shadow, dtype=torch.uint8).to(device)
+        with DeviceDirectSink(c, slot_bytes=64 * MiB, n_slots=4) as sink:
+            got = sink.read_tensors(reqs)
+        same = [torch.equal(t, want[i * tb:(i + 1) * tb])
+                for i, t in enumerate(got)]
+        check(all(t.device.type == torch.device(device).type for t in got),
+              "a placed tensor is off the card")
+        check(all(same), f"placed tensors differ: {same.count(False)}")
+        del got, want
+        out["placed_s"] = time.perf_counter() - t0
+        print(f"soak placed: {len(reqs)} tensors of 4 MiB, the whole "
+              f"{span // MiB} MiB in the card's memory, equal on the card "
+              f"(torch.equal), in {out['placed_s']:.3f} s")
+
+        # a cell write that failed marks its cell dirty; resync rebuilds
+        # every marked cell (the reference soak drains them the same way),
+        # and the scrub skips no stripe after it
+        t0 = time.perf_counter()
+        marked = _dirty_cells(c, k + p)
+        c.cluster.resync()
+        dirty = _dirty_cells(c, k + p)
+        check(dirty == 0, f"{dirty} dirty cells left after the soak")
+        out["resync_s"] = time.perf_counter() - t0
+        # the schedule keeps firing: a stripe whose cell read faults is
+        # skipped for the next cycle, so cycle on (the cursor rotates)
+        # until the checks cover the span's stripes
+        t0 = time.perf_counter()
+        scrub = {"parity_checks": 0, "parity_mismatches": 0, "cycles": 0}
+        while scrub["parity_checks"] < span // BLOCK and scrub["cycles"] < 4:
+            left = span // BLOCK - scrub["parity_checks"]
+            one = c.scrubber.scrub_parity((k + p) * cs * left)
+            scrub["parity_checks"] += one["parity_checks"]
+            scrub["parity_mismatches"] += one["parity_mismatches"]
+            scrub["cycles"] += 1
+        check(scrub["parity_checks"] >= span // BLOCK,
+              f"soak scrub missed stripes: {scrub}")
+        check(scrub["parity_mismatches"] == 0, f"soak scrub: {scrub}")
+        out["scrub_s"] = time.perf_counter() - t0
+        out["marked_before_resync"] = marked
+        print(f"soak scrub: {scrub['parity_mismatches']} mismatches in "
+              f"{scrub['parity_checks']} stripe checks over "
+              f"{scrub['cycles']} cycles in {out['scrub_s']:.3f} s; dirty "
+              f"ledger {dirty} ({marked} cells marked before the resync, "
+              f"{out['resync_s']:.3f} s)")
+
+        f = inj.counters()
+        rec = f["recovered"]
+        ctr = c.io.data_path_counters()
+        for op in ("transport.write_sg", "transport.place_sg", "media.write",
+                   "media.read", "engine.crash", "cap.expire",
+                   "control.rpc.get_pool_map", "map.push"):
+            check(f["injected"].get(op, 0) >= 1, f"{op} never fired")
+        for path in ("ec.degraded_read", "ec.rebuilt", "ec.delta_fallback",
+                     "transport.retry", "cap.renewed", "control.rpc_retry"):
+            check(rec.get(path, 0) >= 1, f"recovery {path} never fired")
+        for key in ("degraded_reads", "reconstructions", "rebuilt_cells",
+                    "delta_writes", "delta_fallbacks"):
+            check(ctr["ec"][key] >= 1, f"ec.{key} is 0: {ctr['ec']}")
+        check(ctr["faults"]["total_injected"] == f["total_injected"],
+              "injections counted twice")
+        print("soak recoveries:", json.dumps(rec, sort_keys=True))
+        print("soak injected:", json.dumps(f["injected"], sort_keys=True))
+        print("soak ec counters:", json.dumps(ctr["ec"], sort_keys=True))
+
+        cq = c.io.cq.counters()
+        check(cq["inflight_peak"] >= SOAK_DEPTH // 2,
+              f"no overlap in the async window: {cq}")
+        check(cq["completed"] == cq["submitted"] - cq["cancelled"],
+              f"cq counters do not settle: {cq}")
+        print("soak cq:", json.dumps(cq, sort_keys=True))
+        launches, threads = ops.launches(), ops.launch_threads()
+        for leg in ("encode", "delta", "decode"):
+            check(launches[leg] > 0, f"no rs_matmul {leg} launch in the soak")
+        names = set().union(*threads.values())
+        check(len(names) > 1, f"rs_matmul launched from one thread: {names}")
+        print("soak rs_matmul launches by leg:", launches)
+        print(f"soak rs_matmul launch threads ({len(names)}):",
+              json.dumps(threads))
+
+        # one traced 64 MiB async window: the card's idle share
+        def window() -> None:
+            w = _SoakWindow(c, fd, shadow, SOAK_DEPTH, BLOCK)
+            for i in range(32):
+                off = (i * 2 * BLOCK) % span
+                if i % 2:
+                    w.read(off, 2 * BLOCK)
+                else:
+                    w.write(off, bytes(shadow[off:off + 2 * BLOCK]))
+            w.drain()
+        t0 = time.perf_counter()
+        trace = device_breakdown(window)
+        out["trace_async_64MiB"] = trace
+        out["trace_s"] = time.perf_counter() - t0
+        print("soak async window, 64 MiB traced:", trace)
+        c.close_fd(fd)
+        _assert_rings_whole(c)
+        print("soak: no leaked slot, lease, rkey grant or handle")
+        out.update(launches=launches, launch_threads=threads, cq=cq,
+                   recovered=rec, injected=f["injected"], ec=ctr["ec"],
+                   scrub=scrub)
+        return out
+    finally:
+        c.close()
+
+
+# -- phase 4(c): the port's examples on the card -------------------------------
+def examples_phase(times: dict) -> dict:
+    """examples/torch_smartnic_offload_demo.py and
+    examples/torch_quickstart.py as a user runs them, on the card (their
+    default device): the demo's six properties, its tensor placed on the
+    card, and the quickstart's loss falling (both assert it)."""
+    import contextlib
+    import importlib.util
+    import io
+
+    out = {}
+    for name in ("torch_smartnic_offload_demo", "torch_quickstart"):
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            got = mod.main([])
+        out[name] = {"wall_s": time.perf_counter() - t0}
+        text = buf.getvalue()
+        if name == "torch_quickstart":
+            out[name]["loss_first_last"] = [got[0], got[-1]]
+            check(got[-1] < got[0], f"quickstart loss did not fall: {got}")
+        else:
+            check("All six properties demonstrated." in text,
+                  "the demo did not finish")
+            check("  placed on cuda:0" in text, "demo tensor not on the card")
+        print(f"example {name}: {out[name]}; its last lines:")
+        for line in text.strip().splitlines()[-3:]:
+            print("   ", line)
+    return out
 
 
 # -- phase 5/6: device-direct placement ----------------------------------------
@@ -4853,6 +5234,14 @@ def main(argv=None) -> int:
             client.close()
 
         t0 = time.perf_counter()
+        soak = soak_phase(args.seed, times)
+        soak_launches = soak["launches"]
+        times["soak_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        examples = examples_phase(times)
+        times["examples_s"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
         dpu = ROS2Client(mode="dpu", transport="rdma", scrub_interval_s=None)
         try:
             small = bytearray(np.random.default_rng(args.seed + 3).bytes(
@@ -4944,9 +5333,16 @@ def main(argv=None) -> int:
                 proc.wait()
 
     enc = kern["legs"]["encode"]
-    total = sum(launches[leg] for leg in ("encode", "delta", "decode"))
+    rs_paths = {path: sum(counts[leg] for leg in ("encode", "delta",
+                                                  "decode"))
+                for path, counts in (("ec", launches),
+                                     ("soak", soak_launches))}
+    total = sum(rs_paths.values())
     print("phase wall times (s):", json.dumps(times))
     print("direct placement:", json.dumps(direct))
+    print("soak:", json.dumps({k: v for k, v in soak.items()
+                               if k != "launch_threads"}))
+    print("examples:", json.dumps(examples))
     print("integrity on the placed stream:", json.dumps(stream))
     print("serve:", json.dumps(serve))
     for arch, stats in (*rec_serve.items(), *moe_serve.items(),
@@ -5007,7 +5403,9 @@ def main(argv=None) -> int:
         "max_abs_err": kern["max_abs_err"], "ms": enc["ms"],
         "call_ms": enc["call_ms"], "plain_ms": enc["plain_ms"],
         "bound_ms": enc["bound_ms"], "bound_by": "bytes",
-        "library_ms": None, "launches_by_leg": launches,
+        "library_ms": None, "launches_by_path": rs_paths,
+        "launches_by_leg": launches, "soak_launches_by_leg": soak_launches,
+        "soak_launch_threads": soak["launch_threads"],
         "legs": kern["legs"], "floor_ms": kern["floor_ms"],
         "floor_call_ms": kern["floor_call_ms"]}, {
         "name": "flash_attention_fwd", "route": "cuda", "source": FK.SOURCE,

@@ -1480,7 +1480,9 @@ class StorageCluster:
                  domains: Optional[Sequence[Optional[str]]] = None,
                  device: DeviceLike = None):
         self.csum = csum or checksum
-        self.device = resolve_device(device)   # EC rebuild's parity kernel
+        # where the EC rebuild's parity kernel runs; not `device`, which
+        # is the method that finds a storage device by name
+        self.kernel_device = resolve_device(device)
         self.n_devices = int(n_devices)
         self.timeouts = timeouts
         self.faults: Optional[FaultInjector] = None
@@ -1778,11 +1780,12 @@ class StorageCluster:
                 missing = [i for i in range(k) if i not in present]
                 if missing:
                     dec = rs.ec_decode(surv, present, k, p, missing,
-                                       device=self.device).cpu().numpy()
+                                       device=self.kernel_device).cpu() \
+                        .numpy()
                     for r, i in enumerate(missing):
                         data[i] = dec[r]
-                parity = rs.ec_encode(data, p, device=self.device).cpu() \
-                    .numpy() if any(j >= k for j in todo) else None
+                parity = rs.ec_encode(data, p, device=self.kernel_device) \
+                    .cpu().numpy() if any(j >= k for j in todo) else None
                 for j in todo:
                     payload = data[j] if j < k else parity[j - k]
                     attempt(lambda j=j, payload=payload: cc.target(

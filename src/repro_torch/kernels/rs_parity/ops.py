@@ -13,12 +13,13 @@ placed on `device` (the CUDA card unless the caller asks for the CPU).
 A CUDA tensor goes to the `rs_matmul` kernel — a failed build or launch
 raises, nothing falls back — and a CPU tensor to the plain PyTorch
 version `ref.gf_matmul_torch`. Results are u8 tensors on the input's
-device. `LAUNCHES` counts kernel launches by leg.
+device. `LAUNCHES` counts kernel launches by leg, and `LAUNCH_THREADS`
+names the host threads each leg was launched from.
 """
 from __future__ import annotations
 
 import threading
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Set
 
 import numpy as np
 import torch
@@ -29,6 +30,7 @@ from repro_torch.kernels.rs_parity import ref
 
 LAUNCHES: Dict[str, int] = {"encode": 0, "delta": 0, "decode": 0,
                             "matmul": 0}
+LAUNCH_THREADS: Dict[str, Set[str]] = {leg: set() for leg in LAUNCHES}
 _launch_lock = threading.Lock()
 
 
@@ -36,11 +38,19 @@ def reset_launches() -> None:
     with _launch_lock:
         for leg in LAUNCHES:
             LAUNCHES[leg] = 0
+            LAUNCH_THREADS[leg].clear()
 
 
 def launches() -> Dict[str, int]:
     with _launch_lock:
         return dict(LAUNCHES)
+
+
+def launch_threads() -> Dict[str, List[str]]:
+    """The names of the host threads that launched each leg since the last
+    `reset_launches()`."""
+    with _launch_lock:
+        return {leg: sorted(names) for leg, names in LAUNCH_THREADS.items()}
 
 
 def _as_u8(x, device: torch.device) -> torch.Tensor:
@@ -66,6 +76,7 @@ def _gf_matmul(mat: np.ndarray, cells: torch.Tensor,
     out = K.rs_matmul(mat, cells.contiguous())
     with _launch_lock:
         LAUNCHES[leg] += 1
+        LAUNCH_THREADS[leg].add(threading.current_thread().name)
     return out
 
 

@@ -21,9 +21,9 @@ increment, and prefill's cache lands in the decode step's max_seq cache,
 made once. On the CPU the same steps run eagerly on the same buffers.
 `compiled=()` runs both eagerly, op by op.
 
-The model, its params and the client run on the CUDA card; there is no
-CPU run of `main`. Library callers pass `device="cpu"` to the ModelAPI,
-the context and the client (the tests do).
+The model, its params and the client run on the CUDA card; `main` takes
+`--device cpu` for a CPU run (the examples' tests use it). Library callers
+pass `device="cpu"` to the ModelAPI, the context and the client.
 """
 from __future__ import annotations
 
@@ -243,12 +243,16 @@ def main(argv=None):
     ap.add_argument("--storage-mode", choices=("host", "dpu"), default="dpu")
     ap.add_argument("--transport", choices=("tcp", "rdma"), default="rdma")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="where the model runs: the CUDA card by default, "
+                         "or cpu")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
-    api = ModelAPI(cfg)
-    mctx = make_host_mesh_ctx(cfg)
-    client = ROS2Client(mode=args.storage_mode, transport=args.transport)
+    api = ModelAPI(cfg, device=args.device)
+    mctx = make_host_mesh_ctx(cfg, device=args.device)
+    client = ROS2Client(mode=args.storage_mode, transport=args.transport,
+                        device=args.device)
     write_prompts(client, args.requests, args.prompt_len, cfg.vocab,
                   args.seed)
     gen = torch.Generator(device=mctx.device).manual_seed(args.seed)

@@ -14,8 +14,8 @@ step's batch goes to the card once, into the static batch buffers of the
 compiled step (`jit_train_step`: captured once into a CUDA graph and
 replayed every step, the params and moments updated in place). The
 checkpoint writer snapshots those tensors between replays, and `--resume`
-copies the restored state into them. It runs on the card only: without
-one it raises.
+copies the restored state into them. It runs on the card unless
+`--device cpu` asks for the CPU; without a card and that flag it raises.
 """
 from __future__ import annotations
 
@@ -53,11 +53,11 @@ def synth_tokens(vocab: int, n: int, seed: int = 0) -> np.ndarray:
 
 def build(args):
     cfg = get_config(args.arch)
-    api = ModelAPI(cfg)
-    mctx = make_host_mesh_ctx(cfg)
+    api = ModelAPI(cfg, device=args.device)
+    mctx = make_host_mesh_ctx(cfg, device=args.device)
     client = ROS2Client(mode=args.storage_mode, transport=args.transport,
                         n_devices=args.n_ssd,
-                        inline_encryption=args.encrypt)
+                        inline_encryption=args.encrypt, device=args.device)
     return cfg, api, mctx, client
 
 
@@ -101,6 +101,9 @@ def main(argv=None):
     ap.add_argument("--tokens", type=int, default=0,
                     help="corpus size (default: enough for the run)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="where the model runs: the CUDA card by default, "
+                         "or cpu")
     args = ap.parse_args(argv)
 
     cfg, api, mctx, client = build(args)
@@ -145,7 +148,8 @@ def main(argv=None):
                   f"from replicas")
         t0 = time.time()
         params, opt, metrics = step_fn(params, opt, loader.next_batch())
-        torch.cuda.synchronize(dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
         dt = time.time() - t0
         mon.record(0, dt)
         tokens_done += args.global_batch * args.seq

@@ -53,7 +53,9 @@ def test_importing_every_module_pulls_in_neither_jax_nor_repro():
 def test_sources_name_neither_jax_nor_repro():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
                      re.MULTILINE)
-    files = list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "examples").glob("torch_*.py")))
+    assert len(files) > 4 + len(list(PORT.rglob("*.py")))
     hits = {str(f.relative_to(ROOT)): m.group(0).strip()
             for f in files for m in [pat.search(f.read_text())] if m}
     assert not hits, hits

@@ -199,7 +199,7 @@ def test_ec_client_on_cpu_runs_no_kernel():
         c.pwrite(fd, data, 0)
         assert c.pread(fd, len(data), 0) == data
         assert c.device.type == "cpu"
-        assert c.io.device == c.cluster.device == c.scrubber.device
+        assert c.io.device == c.cluster.kernel_device == c.scrubber.device
     finally:
         c.close()
     assert rs.launches() == {"encode": 0, "delta": 0, "decode": 0,
