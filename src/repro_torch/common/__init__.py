@@ -1,1 +1,2 @@
-"""Configuration dataclasses of the port (a copy of the reference's)."""
+"""Configuration dataclasses of the port (a copy of the reference's), and
+its span tracer (`tracing`)."""

@@ -77,6 +77,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.common import tracing
 from repro_torch.core import transport_model as tm
 from repro_torch.core import counters_registry
 from repro_torch.core.control_plane import ControlPlane
@@ -998,7 +999,8 @@ class _ServerIO(_SubmitReap):
         copies/byte stays honest on the staged path. Decrypt is the fused
         single-pass `apply_into` on the zero-copy path (the sg path's
         generate+XOR+copy-back is kept behind `zero_copy=False`)."""
-        obj.fetch_into(str(b), AKEY, bo, ln, view)
+        with tracing.span("session.fetch"):
+            obj.fetch_into(str(b), AKEY, bo, ln, view)
         with self._gauge_lock:
             self.bounce_bytes += ln
         if self.crypto is not None:
@@ -1132,7 +1134,8 @@ class _ServerIO(_SubmitReap):
         `_fetch_block` on the staged path). `subs` is [(view, lo, hi)] in
         block-relative coordinates. Decrypt is fused IN PLACE in the
         destination memory — one pass, zero staging."""
-        obj.fetch_scatter(str(b), AKEY, bo, ln, subs)
+        with tracing.span("session.fetch"):
+            obj.fetch_scatter(str(b), AKEY, bo, ln, subs)
         if self.crypto is not None:
             for view, lo, hi in subs:
                 self.crypto.apply_into(view, view,
@@ -1950,7 +1953,8 @@ class _ClusterRouter(_SubmitReap):
     def _gather_into(self, oid: int, offset: int, dsts: Sequence) -> int:
         self._ensure_map()
         if self._ec is not None:
-            return self._ec_gather_into(oid, offset, dsts)
+            with tracing.span("ec.gather"):
+                return self._ec_gather_into(oid, offset, dsts)
         spans, g = [], 0
         for mr, moff, sz in dsts:
             if sz > 0:
@@ -2444,7 +2448,8 @@ class _ClusterRouter(_SubmitReap):
         # pre-write bytes (nor stale parity on a degraded decode).
         # ec(2,1) never had stragglers — quorum == job count — which is
         # why the 4-target fleet could run on a reap here.
-        self._ec_drain()
+        with tracing.span("ec.drain"):
+            self._ec_drain()
         k, p, cs = self._ec
         spans, g = [], 0
         for mr, moff, sz in dsts:
@@ -2484,11 +2489,16 @@ class _ClusterRouter(_SubmitReap):
             else:
                 degraded.setdefault(b, []).append(fr)
 
+        # a batch run on the router's pool keeps the read's trace id
+        trace = tracing.current_trace()
+
         def run_batch(tid: int, items) -> None:
             sess = self.sessions[tid]
-            for b, _cell, lo, _hi, subs in items:
-                self._ec_retry(
-                    lambda: sess._gather_into(oid, b * BLOCK + lo, subs))
+            with (tracing.span("ec.target", trace, target=tid)
+                  if tracing.ON else tracing.NOOP):
+                for b, _cell, lo, _hi, subs in items:
+                    self._ec_retry(
+                        lambda: sess._gather_into(oid, b * BLOCK + lo, subs))
 
         if healthy:
             if len(healthy) == 1:
@@ -2521,7 +2531,8 @@ class _ClusterRouter(_SubmitReap):
                     elif e is not None:
                         raise e
         for b in sorted(degraded):
-            self._ec_reconstruct_block(rs, oid, b, degraded[b])
+            with tracing.span("ec.reconstruct"):
+                self._ec_reconstruct_block(rs, oid, b, degraded[b])
         return size
 
     def _ec_fetch_cells(self, rs, oid: int, b: int,

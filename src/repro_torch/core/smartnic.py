@@ -25,12 +25,14 @@ from __future__ import annotations
 import itertools
 import queue
 import threading
+import time
 from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
+from repro_torch.common import tracing
 from repro_torch.core.faults import DEFAULT_TIMEOUTS, OpTimeout, Timeouts
 
 N_ARM_CORES = 16
@@ -45,6 +47,8 @@ class SQE:
     tag: int
     op: str                         # "read" | "write" | "open" | ...
     args: Dict[str, Any]
+    stamp: int = 0                  # the doorbell's perf_counter_ns, when
+                                    # tracing is on
 
 
 @dataclass
@@ -53,6 +57,8 @@ class CQE:
     ok: bool
     result: Any = None
     error: str = ""
+    stamp: int = 0                  # its put's perf_counter_ns, when tracing
+                                    # is on
 
 
 @dataclass
@@ -150,7 +156,8 @@ class InlineCrypto:
                 return ks
             self.stats.cache_misses += 1
         words = KEYSTREAM_PAGE // 4
-        ks = self._prf_words(page * words, words, nonce).view(np.uint8)
+        with tracing.span("crypto.page"):
+            ks = self._prf_words(page * words, words, nonce).view(np.uint8)
         with self._cache_lock:
             self.stats.keystream_bytes_generated += KEYSTREAM_PAGE
             if self.cache_bytes >= KEYSTREAM_PAGE:
@@ -199,17 +206,19 @@ class InlineCrypto:
         d = _as_u8(dst)
         s = _as_u8(src)
         n = s.size
-        if self.cache_bytes <= 0:
-            np.bitwise_xor(s, self.keystream(n, nonce, offset), out=d[:n])
-        else:
-            pos = 0
-            while pos < n:
-                page, po = divmod(offset + pos, KEYSTREAM_PAGE)
-                take = min(n - pos, KEYSTREAM_PAGE - po)
-                np.bitwise_xor(s[pos:pos + take],
-                               self._page(nonce, page)[po:po + take],
-                               out=d[pos:pos + take])
-                pos += take
+        with tracing.span("crypto.apply"):
+            if self.cache_bytes <= 0:
+                np.bitwise_xor(s, self.keystream(n, nonce, offset),
+                               out=d[:n])
+            else:
+                pos = 0
+                while pos < n:
+                    page, po = divmod(offset + pos, KEYSTREAM_PAGE)
+                    take = min(n - pos, KEYSTREAM_PAGE - po)
+                    np.bitwise_xor(s[pos:pos + take],
+                                   self._page(nonce, page)[po:po + take],
+                                   out=d[pos:pos + take])
+                    pos += take
         with self._cache_lock:
             self.stats.keystream_bytes_served += n
             self.stats.xor_bytes += n
@@ -217,7 +226,13 @@ class InlineCrypto:
 
 
 class DPURuntime:
-    """Worker pool + SQ/CQ rings."""
+    """Worker pool + SQ/CQ rings.
+
+    With tracing on (`common/tracing.py`) an SQE is stamped at its doorbell
+    and a CQE at its put, and each op records, under its tag: `dpu.queue`
+    (doorbell to an Arm core taking the SQE), `dpu.op` (the handler on the
+    Arm core, with its CPU time), `dpu.wait` (the host blocked in
+    `wait_tag`) and in it `dpu.complete` (the CQE's put to its claim)."""
 
     def __init__(self, n_cores: int = N_ARM_CORES, sq_depth: int = 1024,
                  timeouts: Timeouts = DEFAULT_TIMEOUTS):
@@ -280,10 +295,16 @@ class DPURuntime:
             sqe = self.sq.get()
             if sqe is None:
                 return
+            if sqe.stamp:
+                tracing.interval("dpu.queue", sqe.stamp,
+                                 time.perf_counter_ns(), sqe.tag)
             try:
                 fn = self._handlers[sqe.op]
-                res = fn(**sqe.args)
-                self.cq.put(CQE(sqe.tag, True, res))
+                with (tracing.span("dpu.op", sqe.tag, True, op=sqe.op)
+                      if tracing.ON else tracing.NOOP):
+                    res = fn(**sqe.args)
+                self.cq.put(CQE(sqe.tag, True, res,
+                                stamp=tracing.stamp()))
             # lint: allow(broad-except): not a swallow — the worker
             # CONVERTS any handler failure into an error CQE, so the
             # initiator's wait_tag sees the typed message and the Arm
@@ -291,7 +312,8 @@ class DPURuntime:
             # hang every later doorbell)
             except Exception as e:
                 self.cq.put(CQE(sqe.tag, False, None,
-                                f"{type(e).__name__}: {e}"))
+                                f"{type(e).__name__}: {e}",
+                                stamp=tracing.stamp()))
             with self._lock:
                 self.ops_processed += 1
 
@@ -300,7 +322,7 @@ class DPURuntime:
         if self.faults is not None:
             self.faults.fire(f"dpu.submit.{op}")
         tag = next(self._tags)
-        self.sq.put(SQE(tag, op, args))
+        self.sq.put(SQE(tag, op, args, tracing.stamp()))
         self.doorbells += 1
         return tag
 
@@ -310,10 +332,11 @@ class DPURuntime:
         DPU submission cost amortized). `ops` is an iterable of
         (op, kwargs) pairs; returns the tags in order."""
         tags: List[int] = []
+        stamp = tracing.stamp()
         for op, args in ops:
             tag = next(self._tags)
             tags.append(tag)
-            self.sq.put(SQE(tag, op, dict(args)))
+            self.sq.put(SQE(tag, op, dict(args), stamp))
         if tags:
             self.doorbells += 1
         return tags
@@ -344,11 +367,18 @@ class DPURuntime:
     def wait_tag(self, tag: int, timeout: Optional[float] = None) -> CQE:
         """Wait for a specific completion; safe for concurrent callers
         (completions claimed for other tags are parked for their owners)."""
-        import time as _time
+        with tracing.span("dpu.wait", tag):
+            c = self._wait_tag(tag, timeout)
+            if c.stamp:
+                tracing.interval("dpu.complete", c.stamp,
+                                 time.perf_counter_ns(), tag)
+            return c
+
+    def _wait_tag(self, tag: int, timeout: Optional[float]) -> CQE:
         timeout = self.timeouts.dpu_tag_s if timeout is None else timeout
-        start = _time.monotonic()
+        start = time.monotonic()
         deadline = start + timeout
-        while _time.monotonic() < deadline:
+        while time.monotonic() < deadline:
             with self._claim_lock:
                 c = self._claimed.pop(tag, None)
                 if c is not None:
@@ -361,7 +391,7 @@ class DPURuntime:
                     return c
                 self._claimed[c.tag] = c
         raise OpTimeout("dpu.wait_tag", target=f"tag {tag}",
-                        elapsed_s=_time.monotonic() - start,
+                        elapsed_s=time.monotonic() - start,
                         detail="no completion")
 
     def drain(self, n: int, timeout: Optional[float] = None

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.common import tracing
 from repro_torch.configs import get_config
 from repro_torch.core.client import ROS2Client
 from repro_torch.launch.mesh import make_host_mesh_ctx
@@ -104,7 +105,15 @@ class BatchedEngine:
     steps (captured CUDA graphs on the card); the others run eagerly.
     `prefill_s` and `decode_s` add up the host wall time of each phase
     (each ends in a device-to-host read of the tokens, which waits for the
-    card)."""
+    card).
+
+    With tracing on (`common/tracing.py`) a wave records `engine.wave`
+    under its index, with its request ids and the new tokens each asks
+    for; in it `engine.prefill` (`prefill.stack`, `prefill.replay`,
+    `prefill.token_read`) and a `decode.step` a step (`decode.replay`,
+    `decode.token_read`, `decode.bookkeep`). A request's first token is
+    read at the end of `prefill.token_read`, its last at the end of the
+    `decode.token_read` of step new - 1."""
 
     def __init__(self, api: ModelAPI, params, mctx, batch: int,
                  prompt_len: int, max_seq: int,
@@ -115,6 +124,7 @@ class BatchedEngine:
             raise ValueError(f"compiled names prefill and decode, got "
                              f"{compiled}")
         self.compiled = tuple(compiled)
+        self.waves = 0
         self.steps = 0
         self.slot_steps = 0
         self.active_slot_steps = 0
@@ -207,24 +217,40 @@ class BatchedEngine:
             raise ValueError(f"a wave takes 1..{self.batch} requests, got {n}")
         # pad the wave to full batch with clones of the last request
         padded = reqs + [reqs[-1]] * (self.batch - n)
-        with torch.inference_mode():
-            t0 = time.perf_counter()
-            toks = torch.from_numpy(np.stack([r.prompt for r in padded]))
-            self._run_prefill(self.wave_inputs(padded, toks))
-            first = self.token.tolist()
-            self.prefill_s += time.perf_counter() - t0
+        wave = (tracing.span("engine.wave", self.waves,
+                             rids=[r.rid for r in reqs],
+                             new=[r.max_new - len(r.out) for r in reqs])
+                if tracing.ON else tracing.NOOP)
+        self.waves += 1
+        span = tracing.span
+        with torch.inference_mode(), wave:
+            with span("engine.prefill"):
+                t0 = time.perf_counter()
+                with span("prefill.stack"):
+                    toks = torch.from_numpy(
+                        np.stack([r.prompt for r in padded]))
+                    inputs = self.wave_inputs(padded, toks)
+                with span("prefill.replay"):
+                    self._run_prefill(inputs)
+                with span("prefill.token_read"):
+                    first = self.token.tolist()
+                self.prefill_s += time.perf_counter() - t0
             for i, r in enumerate(reqs):
                 r.out.append(first[i])
             t0 = time.perf_counter()
             while not all(r.done for r in reqs):
-                self._run_decode()
-                step = self.token.tolist()
-                self.steps += 1
-                self.slot_steps += self.batch
-                for i, r in enumerate(reqs):
-                    if not r.done:
-                        r.out.append(step[i])
-                        self.active_slot_steps += 1
+                with span("decode.step"):
+                    with span("decode.replay"):
+                        self._run_decode()
+                    with span("decode.token_read"):
+                        step = self.token.tolist()
+                    with span("decode.bookkeep"):
+                        self.steps += 1
+                        self.slot_steps += self.batch
+                        for i, r in enumerate(reqs):
+                            if not r.done:
+                                r.out.append(step[i])
+                                self.active_slot_steps += 1
             self.decode_s += time.perf_counter() - t0
 
     def wave_inputs(self, padded: List[Request], toks: torch.Tensor) -> dict:
