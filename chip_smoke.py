@@ -7,10 +7,11 @@ Phases, each of which must pass (any failure exits non-zero and prints no
 result):
 
   1. card      the card's name and power limit, as nvidia-smi reports them;
-     build     builds every kernel of csrc/ cold (seven sources), one nvcc
+     build     builds every kernel of csrc/ cold (eight sources), one nvcc
                per source, all started together, and prints the ptxas
                reports; then counts the HGMMA and HMMA instructions of each
-               bf16 flash kernel and each wkv6 kernel in its SASS
+               bf16 flash kernel, the decode kernel's split kernel and each
+               wkv6 kernel in its SASS
                (cuobjdump) and fails unless the forward's hold wgmma and
                the backward's and both wkv6 kernels' (state and out, every
                head dim) tensor-core instructions, with their registers,
@@ -41,6 +42,12 @@ result):
                times it, its plain version and the backward of
                scaled_dot_product_attention at the serve and train shapes
                and at phase 12(c)'s, 12(d)'s and 12(e)'s;
+     decode    holds flash_decode against its plain version (tile and
+               split edges, MQA, a group of 16, ragged kv_len, a cache
+               viewed through a slice of its kv heads, the benchmark
+               cells' shapes and a dbrx-132b decode wave), then times it,
+               its plain version and scaled_dot_product_attention with a
+               mask at those three shapes beside its bytes bound;
      scans     holds rglru_scan against its plain version (the reference's
                shapes, T = 1, ragged R, the prefill shape (4, 1024, 2560),
                T = 63, 65 and 4096 at R = 2567, a near 1 over 4096 steps,
@@ -135,7 +142,9 @@ result):
                inputs (bf16, 2e-2), the whole model at full width in
                float32 through its first two layers (logits to 1e-3, every
                first greedy token equal), and a small float32 model's loss
-               to 1e-4;
+               to 1e-4; the decode graph must launch flash_decode once a
+               layer (two kernels), and no decode call asking for "flash"
+               may take the plain path (the moe phase checks the same);
   8. recurrent the serving path of the sub-quadratic families at full
                width, each with attn_impl="flash" and the granite phase's
                traffic (8 prompts of 1024 tokens from a dpu/RDMA store,
@@ -332,8 +341,9 @@ placed stream; flash_attention_fwd: each of the granite, dbrx and VLM
 serve phases and the mesh phase's steps (a), (c) and (d), and its
 launches are their sum; rglru_scan and wkv6: their serve phases, their
 train paths in the families phase and the mesh phase's step (d);
-flash_attention_bwd: the train phase and the mesh phase's steps) and read
-just after it. A wrapper counts the launches it makes itself; a call captured into a
+flash_attention_bwd: the train phase and the mesh phase's steps;
+flash_decode: the granite and moe serve phases, its wrapper counting a
+captured call too) and read just after it. A wrapper counts the launches it makes itself; a call captured into a
 CUDA graph launches nothing, and each replay of the graph launches what
 the capture recorded, so on the compiled paths a kernel's launches are
 the wrapper's count plus its kernels in each graph (from traced
@@ -455,7 +465,8 @@ def device_ops_ms(fn, iters: int, names: tuple) -> tuple:
 
 
 KERNEL_KINDS = (  # substring of a CUDA kernel's name -> what it does
-    ("flash_fwd_kernel", "flash fwd"), ("flash_bwd_", "flash bwd"),
+    ("flash_decode_", "flash decode"), ("flash_fwd_kernel", "flash fwd"),
+    ("flash_bwd_", "flash bwd"),
     ("rglru_scan_", "rglru scan"), ("wkv6_kernel", "wkv scan"),
     ("stream_cipher_kernel", "cipher"), ("fletcher_kernel", "checksum"),
     ("rs_matmul", "parity"), ("nvjet", "matmul"), ("gemm", "matmul"),
@@ -504,6 +515,7 @@ def build_phase() -> dict:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention import kernel_bwd as FKB
+    from repro_torch.kernels.flash_attention import kernel_decode as FKD
     from repro_torch.kernels.rglru_scan import kernel as RGK
     from repro_torch.kernels.rs_parity import kernel as RK
     from repro_torch.kernels.rwkv6_scan import kernel as WK
@@ -517,7 +529,8 @@ def build_phase() -> dict:
 
     t0 = time.perf_counter()
     builds = {"rs_parity": RK.build, "flash_attention_fwd": FK.build,
-              "flash_attention_bwd": FKB.build, "rglru_scan": RGK.build,
+              "flash_attention_bwd": FKB.build,
+              "flash_decode": FKD.build, "rglru_scan": RGK.build,
               "wkv6": WK.build, "stream_cipher": SCK.build,
               "fletcher": FLK.build}
     with ThreadPoolExecutor(max_workers=len(builds),
@@ -539,12 +552,14 @@ TC_KERNELS = {  # library -> (name of its tensor-core kernels, SASS opcodes,
     #                count): bf16 flash kernels, the wkv6 kernels in 3xTF32
     "flash_attention_fwd": ("flash_fwd_kernel_tc", ("HGMMA",), 3),
     "flash_attention_bwd": ("_kernel_tc", ("HMMA", "HGMMA"), 6),
+    "flash_decode": ("flash_decode_split_kernel", ("HMMA",), 2),
     "wkv6": ("wkv6_kernel", ("HMMA", "HGMMA"), 8)}
 
 
 def tensor_core_phase() -> dict:
     """For each tensor-core kernel (the bf16 flash kernels, one per head
-    dim, two for the backward; wkv6's state and out kernels, one per head
+    dim, two for the backward; the decode kernel's split kernel (mma.sync),
+    one per head dim; wkv6's state and out kernels, one per head
     dim): the count of HGMMA and HMMA instructions in its SASS (`cuobjdump
     -sass`), its registers and spill bytes (ptxas's report of the build
     phase) and its dynamic shared memory a CTA (the library's own query).
@@ -557,12 +572,14 @@ def tensor_core_phase() -> dict:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention import kernel_bwd as FKB
+    from repro_torch.kernels.flash_attention import kernel_decode as FKD
     from repro_torch.kernels.rwkv6_scan import kernel as WK
     tool = shutil.which("cuobjdump") or str(Path(os.environ.get(
         "CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
     kernels: dict = {}
     for lib_name, mod in (("flash_attention_fwd", FK),
-                          ("flash_attention_bwd", FKB), ("wkv6", WK)):
+                          ("flash_attention_bwd", FKB),
+                          ("flash_decode", FKD), ("wkv6", WK)):
         lib = mod._lib()
         res = subprocess.run([tool, "-sass", lib._name], capture_output=True,
                              text=True, timeout=300, check=True)
@@ -595,7 +612,8 @@ def tensor_core_phase() -> dict:
         for f, c in tc.items():
             d = int(re.search(r"ILi(\d+)E", f).group(1))    # head dim
             c["smem_bytes"] = (
-                query(d) if lib_name == "flash_attention_fwd"
+                query(d) if lib_name in ("flash_attention_fwd",
+                                         "flash_decode")
                 else query(d, int("dkv" in f)) if lib_name ==
                 "flash_attention_bwd" else query(d, int("_out" in f)))
             check(sum(c[op] for op in ops) > 0,
@@ -1542,6 +1560,117 @@ def flash_bwd_phase(seed: int) -> dict:
             "floor_ms": floor_ms, "floor_call_ms": floor_call_ms}
 
 
+# -- phase 3, continued: the decode kernel against its plain version ---------
+DECODE_CELLS = {  # B, S, KH, G, D and the live positions a row timed: the
+    # benchmark's cells (portbench/cells), mid-wave (prompt + half the reply
+    # cap + 1), and a dbrx-132b decode wave at the chat cell's cache
+    "granite-3-2b.chat": (96, 1288, 8, 4, 64, 1024 + 128 + 1),
+    "granite-3-2b.rag": (32, 3912, 8, 4, 64, 3840 + 32 + 1),
+    "dbrx-132b": (8, 1288, 8, 6, 128, 1024 + 128 + 1)}
+DECODE_CASES = [  # B, S, KH, G, D: the split and tile edges (S below a
+    # tile, not a multiple of 64, one split and many), MQA, a group of 16,
+    # every row of a ragged kv_len (1 and S among them)
+    (3, 17, 2, 4, 64), (2, 200, 1, 16, 64), (5, 1000, 2, 4, 128),
+    (4, 4097, 1, 6, 128), (2, 3912, 8, 4, 64)]
+DECODE_TOL = 2e-2               # the reference's bf16 tolerance
+
+
+def decode_bound(B: int, S: int, KH: int, G: int, D: int, live: int) -> dict:
+    """The least time an H100 SXM could take for one decode call: the
+    larger of the products' operations (`attention_flops` over the live
+    positions) over the bf16 tensor-core peak and the bytes (q, out, kv_len
+    and the live positions' k and v, each once) over HBM's rate."""
+    from repro_torch.kernels.flash_attention.ops import attention_flops
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16
+    H = KH * G
+    flops = attention_flops(B, 1, S, H, D, causal=False, seq_k=live)
+    nbytes = 2 * (2 * B * H * D + 2 * B * live * KH * D) + 4 * B
+    ops_ms = flops / PEAK_FLOPS_BF16 * 1e3
+    bytes_ms = nbytes / HBM_BW * 1e3
+    return {"flops": flops, "bytes": nbytes, "ops_ms": ops_ms,
+            "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def _decode_inputs(shape: tuple, gen, kv_len=None):
+    import torch
+    B, S, KH, G, D = shape
+    q = torch.randn(B, 1, KH * G, D, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(B, S, KH, D, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(B, S, KH, D, generator=gen, device="cuda").bfloat16()
+    if kv_len is None:      # every row its own length, 1 and S among them
+        kv_len = torch.randint(1, S + 1, (B,), generator=gen, device="cuda",
+                               dtype=torch.int32)
+        kv_len[0], kv_len[-1] = 1, S
+    else:
+        kv_len = torch.full((B,), kv_len, dtype=torch.int32, device="cuda")
+    return q, k, v, kv_len
+
+
+def decode_phase(seed: int) -> dict:
+    """flash_decode held against its plain version (`ref.decode_ref`, the
+    plain path's arithmetic on the card) at the tile and split edges, a
+    cache viewed through a slice of its heads, and the cells' shapes; at
+    the cells' shapes timed beside its bound, the plain path and
+    scaled_dot_product_attention (the library yardstick, used nowhere in
+    the port)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel_decode as KD
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    worst = 0.0
+    cases = [(c, None) for c in DECODE_CASES] + [
+        (c[:5], c[5]) for c in DECODE_CELLS.values()]
+    for shape, live in cases:
+        q, k, v, kv_len = _decode_inputs(shape, gen, live)
+        for kk, vv, what in ((k, v, "whole"),
+                             (k[:, :, 1:], v[:, :, 1:], "heads 1..")):
+            if what != "whole" and shape[2] == 1:
+                continue
+            qq = q[:, :, :kk.shape[2] * shape[3]]
+            got = ops.flash_decode(qq, kk, vv, kv_len)
+            want = ref.decode_ref(qq, kk, vv, kv_len, shape[4] ** -0.5)
+            err, ok = in_tolerance(got, want, DECODE_TOL)
+            check(ok, f"flash_decode off its plain version by {err} at "
+                  f"{shape} ({what}), kv_len {kv_len.tolist()[:8]}")
+            worst = max(worst, err)
+    print(f"flash_decode within {DECODE_TOL} of its plain version in "
+          f"{len(cases)} shapes; max abs error {worst:.6f}")
+
+    cells = {}
+    for cell, (B, S, KH, G, D, live) in DECODE_CELLS.items():
+        q, k, v, kv_len = _decode_inputs((B, S, KH, G, D), gen, live)
+        ms = kernel_device_ms(lambda: ops.flash_decode(q, k, v, kv_len), 20,
+                              KD.KERNEL_NAME, KD.KERNELS_PER_CALL)
+        call_ms = cuda_ms(lambda: ops.flash_decode(q, k, v, kv_len), 20)
+        plain_ms = cuda_ms(lambda: ref.decode_ref(q, k, v, kv_len, D ** -0.5),
+                           3)
+        mask = (torch.arange(S, device="cuda")[None, :]
+                < kv_len[:, None])[:, None, None, :]
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True), 20)
+        bound = decode_bound(B, S, KH, G, D, live)
+        splits, per = KD.plan(B, KH, S, KD.card_slots(q.device.index, D))
+        print(f"flash_decode at {cell} (B={B}, S={S}, KH={KH}, G={G}, D={D},"
+              f" {live} live positions a row, {splits} splits of {per} "
+              f"tiles): kernels {ms:.6f} ms on the device, {call_ms:.6f} ms "
+              f"a call, plain {plain_ms:.6f} ms, "
+              f"scaled_dot_product_attention {library_ms:.6f} ms; bound "
+              f"{bound['bound_ms']:.6f} ms by {bound['bound_by']} "
+              f"({bound['bytes']} B), {100 * bound['bound_ms'] / ms:.2f}% "
+              f"of it")
+        cells[cell] = {"shape": dict(zip(("B", "S", "KH", "G", "D", "live"),
+                                         (B, S, KH, G, D, live))),
+                       "splits": splits, "tiles_per_split": per, "ms": ms,
+                       "call_ms": call_ms, "plain_ms": plain_ms,
+                       "library_ms": library_ms,
+                       "roofline_pct": 100 * bound["bound_ms"] / ms, **bound}
+    return {"max_abs_err": worst, "cells": cells}
+
+
 # -- phase 3, continued: the RG-LRU and RWKV6 scans against their plain versions
 FP32_FLOPS = 67e12              # H100 SXM float32 FMA peak (CUDA cores)
 RGLRU_CASES = [  # B, T, R: the reference's (tests/test_kernels.py:103-104),
@@ -2194,7 +2323,8 @@ def first_layers(tree: dict, n: int) -> dict:
 COMPILED = ("prefill", "decode")   # the engine's captured steps
 KERNEL_KIND = {  # a path kernel -> its kind in KERNEL_KINDS, kernels a call
     "flash_attention_fwd": ("flash fwd", 1), "rglru_scan": ("rglru scan", 1),
-    "wkv6": ("wkv scan", 2), "flash_attention_bwd": ("flash bwd", 2)}
+    "wkv6": ("wkv scan", 2), "flash_attention_bwd": ("flash bwd", 2),
+    "flash_decode": ("flash decode", 2)}
 
 
 def graph_kernels(replay) -> tuple:
@@ -2597,6 +2727,33 @@ def _init_on_card(api, seed: int, times: dict, label: str) -> dict:
     return params
 
 
+def _flash_counts() -> dict:
+    """The flash kernels' wrapper launches, as `_serve_from_store` reads
+    them."""
+    from repro_torch.kernels.flash_attention import ops
+    got = ops.launches()
+    return {"flash_attention_fwd": got["fwd"], "flash_decode": got["decode"]}
+
+
+def _decode_launches(label: str, stats: dict, launched: dict,
+                     per_step: int) -> int:
+    """Checks that the decode graph launches flash_decode `per_step` times
+    a replay and that no decode call asking for "flash" took the plain
+    path (eager steps included); returns the run's flash_decode calls."""
+    from repro_torch.kernels.flash_attention import kernel_decode as KD
+    from repro_torch.kernels.flash_attention import ops
+    in_graph = stats["launches_by_graph"]["flash_decode"][
+        "decode_graph_kernels"]
+    check(in_graph == KD.KERNELS_PER_CALL * per_step,
+          f"{label}: {in_graph} flash_decode kernels in the decode graph, "
+          f"not {KD.KERNELS_PER_CALL} x {per_step} layers")
+    plain = ops.launches()["decode_plain"]
+    check(plain == 0, f"{label}: {plain} decode calls on the plain path")
+    print(f"[{label}] flash_decode: {per_step} calls a decode replay, "
+          f"{launched['flash_decode']} in the run, none on the plain path")
+    return launched["flash_decode"]
+
+
 def serve_phase(seed: int, times: dict) -> dict:
     import torch
     from repro_torch.configs import get_config, tiny_config
@@ -2613,8 +2770,7 @@ def serve_phase(seed: int, times: dict) -> dict:
 
     reqs, eng, stats, launched = _serve_from_store(
         api, params, mctx, cfg.vocab, seed, "serve", ops.reset_launches,
-        lambda: {"flash_attention_fwd": ops.launches()["fwd"]},
-        tol=FLASH_TOL[cfg.compute_dtype])
+        _flash_counts, tol=FLASH_TOL[cfg.compute_dtype])
     launches = launched["flash_attention_fwd"]
     times["serve_prompts_s"] = stats["prompts_s"]
     times["serve_s"] = stats["wall_s"]
@@ -2622,6 +2778,8 @@ def serve_phase(seed: int, times: dict) -> dict:
           f"flash_attention_fwd launched {launches} times, fewer than "
           f"{cfg.n_layers} layers x {stats['waves']} waves")
     stats["flash_launches"] = launches
+    stats["decode_launches"] = _decode_launches("granite-3-2b", stats,
+                                                launched, cfg.n_layers)
 
     # one wave's prefill through the flash kernel, every layer's attention
     # held against the plain version on the very inputs the serve path gave
@@ -2901,16 +3059,16 @@ def serve_moe_phase(arch: str, seed: int, times: dict) -> dict:
 
     reqs, eng, stats, launched = _serve_from_store(
         api, params, mctx, cfg.vocab, seed, f"serve {arch}",
-        ops.reset_launches,
-        lambda: {"flash_attention_fwd": ops.launches()["fwd"]},
-        tol=FLASH_TOL[cfg.compute_dtype])
+        ops.reset_launches, _flash_counts, tol=FLASH_TOL[cfg.compute_dtype])
     launches = launched["flash_attention_fwd"]
     times[f"{arch}_serve_s"] = stats["wall_s"]
     check(launches == per_wave * stats["waves"],
           f"flash_attention_fwd launched {launches} times on the {arch} "
           f"path, not {per_wave} x {stats['waves']} waves")
     stats.update({"flash_launches": launches, "layers": cfg.n_layers,
-                  "of_layers": full.n_layers})
+                  "of_layers": full.n_layers,
+                  "decode_launches": _decode_launches(arch, stats, launched,
+                                                      per_wave)})
 
     wave = torch.from_numpy(np.stack([r.prompt for r in reqs[:SERVE_BATCH]]))
     # the memory a prefill wave takes above the params (the experts'
@@ -5167,6 +5325,7 @@ def main(argv=None) -> int:
     from repro_torch.core import ROS2Client
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention import kernel_bwd as FKB
+    from repro_torch.kernels.flash_attention import kernel_decode as FKD
     from repro_torch.kernels.rglru_scan import kernel as RGK
     from repro_torch.kernels.rs_parity import kernel as K
     from repro_torch.kernels.rs_parity import ops
@@ -5200,6 +5359,9 @@ def main(argv=None) -> int:
         flash = flash_phase(args.seed)
         flash_bwd = flash_bwd_phase(args.seed)
         times["flash_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        decode = decode_phase(args.seed)
+        times["decode_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         scans = scan_phase(args.seed)
         times["scans_s"] = time.perf_counter() - t0
@@ -5380,6 +5542,10 @@ def main(argv=None) -> int:
     flash_bwd["shapes"]["vlm_rank"]["launches"] = vlm_rank["bwd"]
     flash_bwd["shapes"]["dbrx_rank"]["launches"] = dbrx_rank["bwd"]
     bwd = flash_bwd["shapes"]["train"]
+    chat = decode["cells"]["granite-3-2b.chat"]
+    decode_paths = {"granite-3-2b": serve["decode_launches"],
+                    **{arch: moe_serve[arch]["decode_launches"]
+                       for arch in MOE_SERVE}}
     rgp, wkv = scans["rglru"]["legs"]["prefill"], scans["wkv"]
     # the scans' serve and train paths, each counted from 0 just before it
     scan_paths = {kernel: {
@@ -5443,6 +5609,16 @@ def main(argv=None) -> int:
         "floor_ms": flash_bwd["floor_ms"],
         "floor_call_ms": flash_bwd["floor_call_ms"],
         "bf16_kernels": tensor_cores["flash_attention_bwd"]}, {
+        "name": "flash_decode", "route": "cuda", "source": FKD.SOURCE,
+        "replaces": None,
+        "launches": sum(decode_paths.values()),
+        "launches_by_path": decode_paths,
+        "max_abs_err": decode["max_abs_err"], "ms": chat["ms"],
+        "call_ms": chat["call_ms"], "plain_ms": chat["plain_ms"],
+        "bound_ms": chat["bound_ms"], "bound_by": chat["bound_by"],
+        "library_ms": chat["library_ms"], "shape": chat["shape"],
+        "cells": decode["cells"],
+        "mma_kernels": tensor_cores["flash_decode"]}, {
         "name": "rglru_scan", "route": "cuda", "source": RGK.SOURCE,
         "replaces": RGK.REPLACES,
         "launches": sum(scan_paths["rglru_scan"].values()),

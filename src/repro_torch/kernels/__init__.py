@@ -7,7 +7,8 @@ and ref.py (the numpy oracle and the plain PyTorch version).
 
   rs_parity       — GF(256) Reed-Solomon parity for ec(k,p) containers
   flash_attention — online-softmax GQA attention, forward (prefill and
-                    training) and backward recomputed from lse (training)
+                    training) and backward recomputed from lse (training);
+                    split-KV decode over the bf16 KV cache (serving)
   rglru_scan      — the RG-LRU linear recurrence of the hybrid family's
                     recurrent blocks (prefill and decode), and its
                     adjoint in reverse (training)

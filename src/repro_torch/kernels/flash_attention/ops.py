@@ -35,6 +35,18 @@ outputs' shapes and dtypes, through which a trace under FakeTensorMode
 formula registered with
 `torch.utils.flop_counter` (`attention_flops`, which `chip_smoke.py`'s
 bounds call too).
+
+`flash_decode` is attention of one query token a sequence against a KV
+cache with a per-row length (`kv_len`), the decode step's. A CUDA tensor
+goes to the split-KV kernel (`kernel_decode`, through the op
+`repro_torch::flash_decode`, which has a fake implementation and a FLOP
+formula too) or the call raises; a CPU tensor to `ref.decode_ref`, which
+is bit for bit what the plain path of `models/layers.py` `attention`
+computes. `decode_takes` says which calls `attention` sends there.
+LAUNCHES["decode"] counts the op's calls on the card, a call captured into
+a CUDA graph included (each replay of the graph then launches what the
+capture recorded), and LAUNCHES["decode_plain"] the decode calls on the
+card that asked for "flash" and that `decode_takes` left on the plain path.
 """
 from __future__ import annotations
 
@@ -50,12 +62,14 @@ from torch.utils.flop_counter import register_flop_formula
 from repro_torch.kernels._launch import launching
 from repro_torch.kernels.flash_attention import kernel as K
 from repro_torch.kernels.flash_attention import kernel_bwd as KB
+from repro_torch.kernels.flash_attention import kernel_decode as KD
 from repro_torch.kernels.flash_attention import ref
 
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
 
-LAUNCHES: Dict[str, int] = {"fwd": 0, "bwd": 0, "bwd_softcap": 0}
+LAUNCHES: Dict[str, int] = {"fwd": 0, "bwd": 0, "bwd_softcap": 0,
+                            "decode": 0, "decode_plain": 0}
 _launch_lock = threading.Lock()
 
 
@@ -163,6 +177,66 @@ def _(q, k, v, dout, lse, delta, scale, causal, window, *args,
                            backward=True)
 
 
+@torch.library.custom_op("repro_torch::flash_decode", mutates_args=())
+def _decode_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   kv_len: torch.Tensor, scale: float) -> torch.Tensor:
+    """The decode kernels' launch, counted (at capture too)."""
+    out = KD.flash_decode(q, k, v, kv_len, scale=scale)
+    _count("decode")
+    return out
+
+
+@_decode_kernel.register_fake
+def _(q, k, v, kv_len, scale):
+    KD.check_decode(q, k, v, kv_len)
+    return q.new_empty(q.shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_decode)
+def _(q, k, v, kv_len, scale, *args, **kwargs) -> int:
+    B, T, H, D = q
+    # kv_len is data: every cached position, as the plain path's einsums
+    return attention_flops(B, T, k[1], H, D, causal=False)
+
+
+def decode_takes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 kv_len: Optional[torch.Tensor], *, causal: bool,
+                 window: Optional[int], softcap: Optional[float]) -> bool:
+    """Whether `flash_decode` computes this attention call: one query
+    token against a cache of per-row length kv_len (B,), no causal mask,
+    window or softcap, bfloat16 q, k, v of one head dim in
+    kernel_decode.HEAD_DIMS, at most MAX_GROUP query heads a kv head."""
+    B, T, H, D = q.shape
+    return (kv_len is not None and T == 1 and not causal and window is None
+            and not softcap and D in KD.HEAD_DIMS and v.shape[-1] == D
+            and k.shape[-1] == D
+            and all(x.dtype == torch.bfloat16 for x in (q, k, v))
+            and H % k.shape[2] == 0 and H // k.shape[2] <= KD.MAX_GROUP
+            and tuple(kv_len.shape) == (B,)
+            and kv_len.dtype in KD.KV_LEN_DTYPES)
+
+
+def note_plain_decode(q: torch.Tensor) -> None:
+    """Counts a decode call on the card that asked for "flash" and that
+    `decode_takes` left on the plain path."""
+    if q.is_cuda:
+        _count("decode_plain")
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 kv_len: torch.Tensor, *,
+                 scale: Optional[float] = None) -> torch.Tensor:
+    """Attention of q (B,1,H,D) over k, v (B,S,KH,D) at positions below
+    kv_len (B,), scale default 1/sqrt(D): the kernel on a CUDA tensor
+    (raising on what it does not take), `ref.decode_ref` on a CPU one.
+    Returns (B,1,H,D) in q's dtype."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return ref.decode_ref(q, k, v, kv_len, float(scale))
+    return torch.ops.repro_torch.flash_decode(q, k, v, kv_len, float(scale))
+
+
 def _forward(q, k, v, scale, causal, window, softcap, block_q, block_k):
     """(out, lse) of the forward on q's device."""
     if q.device.type == "cpu":
@@ -249,9 +323,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     return_lse: bool = False):
     """Flash attention. q (B,T,H,D); k,v (B,S,KH,D), H % KH == 0.
 
-    Positions are absolute indices (q token t attends kv tokens <= t); for
-    decode-style q offsets use the plain path (layers.attention), which
-    takes a per-batch kv_len. Returns out (B,T,H,D) [, lse (B,H,T)].
+    Positions are absolute indices (q token t attends kv tokens <= t); a
+    decode step's query against a cache of per-row length goes to
+    `flash_decode`. Returns out (B,T,H,D) [, lse (B,H,T)].
     """
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])

@@ -9,9 +9,13 @@ positions >= seq_k masked (padding), all with the finite mask value
 (`repro/kernels/flash_attention/ref.py:17`); `flash_attention_bwd_ref` is
 the recompute-from-lse math of the reference's backward kernels
 (`repro/kernels/flash_attention/kernel_bwd.py:32-49`, `_tile_p_ds`) over
-whole tensors. The CPU tests use them and chip_smoke.py holds the CUDA
-kernels against them on the card; on the card's main path only the
-softcap backward (autograd through `attention_ref`) reaches this module.
+whole tensors. `decode_ref` is the decode kernel's plain version: the
+plain path of `models/layers.py` `attention` for one query token against a
+cache with a per-row length, op for op, so that a CPU call of
+`flash_decode` gives what that path gives, bit for bit. The CPU tests use
+them and chip_smoke.py holds the CUDA kernels against them on the card; on
+the card's main path only the softcap backward (autograd through
+`attention_ref`) reaches this module.
 """
 from __future__ import annotations
 
@@ -52,6 +56,38 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         lse = (m + torch.log(l.clamp_min(1e-30)))[..., 0]   # (B,KH,G,T)
         return out, lse.reshape(B, H, T)
     return out
+
+
+def decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               kv_len: torch.Tensor, scale: float) -> torch.Tensor:
+    """q (B,1,H,D); k, v (B,S,KH,D); keys at positions >= kv_len[b]
+    masked. The plain path's arithmetic in its order: q times the scale
+    in q's dtype, float32 scores and softmax over the whole cache as one
+    chunk, p rounded to v's dtype for p.v, out in q's dtype. Returns
+    (B,1,H,D)."""
+    B, T, H, D = q.shape
+    S, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    dev = q.device
+    qgf = (q.reshape(B, T, KH, G, D)
+           * torch.tensor(scale, dtype=q.dtype)).float()
+    neg = torch.full((), MASK_VALUE, dtype=torch.float32, device=dev)
+    m = torch.full((B, KH, G, T), -math.inf, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, KH, G, T), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, KH, G, T, D), dtype=torch.float32, device=dev)
+    s = torch.einsum("btkgd,bskd->bkgts", qgf, k.float())
+    valid = torch.arange(S, device=dev)[None, :] < kv_len.reshape(-1, 1)
+    live = (torch.ones((T, S), dtype=torch.bool, device=dev)[None, None, None]
+            & valid[:, None, None, None, :])
+    s = torch.where(live, s, neg)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(dim=-1)
+    acc = acc * corr[..., None] + torch.einsum(
+        "bkgts,bskd->bkgtd", p.to(v.dtype).float(), v.float())
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, D).to(q.dtype)
 
 
 def _mask(T: int, S: int, causal: bool, window: Optional[int],

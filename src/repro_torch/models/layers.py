@@ -1,10 +1,11 @@
 """Shared layer library: norms, rotary, attention variants, MLPs, losses.
 
-Plain PyTorch, the counterpart of `repro/models/layers.py`. The hot spot
-with a hand-written kernel is prefill self-attention (`attention` with
-impl="flash"); everything else is plain torch, as the reference leaves it
-to XLA. `sharded_mlp` and `softmax_xent` with a MeshCtx are the
-tensor-parallel forms a rank runs on its shards (`models/context.py`).
+Plain PyTorch, the counterpart of `repro/models/layers.py`. The hot spots
+with hand-written kernels are prefill self-attention and decode attention
+over the cache (`attention` with impl="flash"); everything else is plain
+torch, as the reference leaves it to XLA. `sharded_mlp` and
+`softmax_xent` with a MeshCtx are the tensor-parallel forms a rank runs on
+its shards (`models/context.py`).
 """
 from __future__ import annotations
 
@@ -95,8 +96,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     window: local attention window (positions within [qpos-window+1, qpos]).
     impl="flash" dispatches to the flash-attention kernel when the call is a
     plain self-attention (no dynamic kv_len, D == Dv, T == S) — the shape
-    prefill serves; decode keeps the plain path. ("jnp" names the plain
-    path, as in the reference's configs.) Returns (B, T, H, D).
+    prefill serves — and to the decode kernel (`flash_decode`) when it is
+    one query token against a cache of per-row length kv_len that
+    `decode_takes` accepts (bfloat16, no mask but kv_len, head dim 64 or
+    128); other decode calls keep the plain path below, and on the card
+    are counted as such. ("jnp" names the plain path, as in the
+    reference's configs.) Returns (B, T, H, D).
     """
     B, T, H, D = q.shape
     if (impl == "flash" and kv_len is None and v.shape[-1] == D
@@ -104,6 +109,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         from repro_torch.kernels.flash_attention.ops import flash_attention
         return flash_attention(q, k, v, scale=softmax_scale, causal=causal,
                                window=window, softcap=logit_softcap)
+    if impl == "flash" and kv_len is not None:
+        from repro_torch.kernels.flash_attention import ops as fops
+        if fops.decode_takes(q, k, v, kv_len, causal=causal, window=window,
+                             softcap=logit_softcap):
+            return fops.flash_decode(q, k, v, kv_len, scale=softmax_scale)
+        fops.note_plain_decode(q)
     S, KH = k.shape[1], k.shape[2]
     Dv = v.shape[-1]                      # may differ from D (e.g. MLA)
     G = H // KH

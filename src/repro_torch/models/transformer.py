@@ -190,7 +190,8 @@ def _gqa(x, p, cfg: ModelConfig, positions, mctx: MeshCtx = None, *,
 
     cache: dict(k=(B,S,KH,Dh), v=(B,S,KH,Dh)); pos: (B,) write positions.
     Decode writes k, v into the cache in place (the reference donates the
-    cache across decode steps). Returns (out, new_cache_or_None). On a
+    cache across decode steps) and attends with cfg.attn_impl, as prefill
+    does: "flash" sends a bf16 cache to the decode kernel. Returns (out, new_cache_or_None). On a
     mesh p is the layer's local shard and the cache holds the kv heads
     its spec gives this rank; with `reduce` False, out is left as this
     rank's partial sum over "model" (`_attn_sum`)."""
@@ -239,7 +240,7 @@ def _gqa(x, p, cfg: ModelConfig, positions, mctx: MeshCtx = None, *,
                                                   device=x.device),
                           kv_positions=torch.arange(S, device=x.device),
                           causal=False, window=None, kv_len=pos + 1,
-                          chunk=S)
+                          chunk=S, impl=cfg.attn_impl)
         new_cache = {"k": ck, "v": cv}
     w_o = gather_fsdp(p["w_o"], 2, mctx, d)
     H, hd, _ = w_o.shape

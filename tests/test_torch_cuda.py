@@ -12,7 +12,9 @@ dispatch cast on the card against the CPU port; the scans' backward at
 their train shapes (`rglru_scan` reversed at (4, 256, 2560), the
 `wkv6_backward` op at (4, 256, 32, 64) against the same op on the CPU)
 and the captured train steps of the tiny dense, hybrid and ssm models,
-bit for bit their eager steps; and the multi-device
+bit for bit their eager steps; the decode kernel (`flash_decode`) against
+its plain version at both benchmark cells' shapes and dbrx-132b's, and a
+captured decode step bit for bit its eager step; and the multi-device
 layer on a one-rank NCCL group: the mesh's train step and `moe_ffn` bit
 for bit their one-device counterparts.
 Every test here needs a card and skips
@@ -35,6 +37,7 @@ from repro_torch.core import ROS2Client
 from repro_torch.core.device_direct import DeviceDirectSink
 from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.flash_attention import kernel_bwd as FKB
+from repro_torch.kernels.flash_attention import kernel_decode as FKD
 from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.flash_attention import ref as fref
 from repro_torch.kernels.rs_parity import kernel as K
@@ -1241,3 +1244,98 @@ def test_mesh_moe_ffn_equals_the_meshless_call(nccl_mesh, wire):
     step(layer, x)
     torch.testing.assert_close(step(layer, x), want, rtol=0, atol=0)
     assert step.graph is not None
+
+
+DECODE_CARD_SHAPES = [  # B, S, KH, G, D: granite-3-2b's chat and rag cells,
+    # a dbrx-132b wave, tile and split edges, a group of 16, MQA
+    (96, 1288, 8, 4, 64), (32, 3912, 8, 4, 64), (8, 1288, 8, 6, 128),
+    (3, 17, 2, 16, 64), (2, 200, 1, 1, 128), (4, 4097, 1, 6, 128)]
+
+
+@pytest.mark.parametrize("B,S,KH,G,D", DECODE_CARD_SHAPES)
+def test_flash_decode_matches_plain_version_on_card(cuda_device, B, S, KH,
+                                                    G, D):
+    """flash_decode against its plain version (the plain path's arithmetic,
+    `ref.decode_ref`) on ragged kv_len (1 and S among them), at the bf16
+    tolerance 2e-2; also through a cache viewed as a slice of its kv
+    heads, as a mesh rank may hand it over."""
+    gen = torch.Generator(device=cuda_device).manual_seed(B + S + D)
+    H = KH * G
+    q = torch.randn(B, 1, H, D, generator=gen, device=cuda_device).bfloat16()
+    k = torch.randn(B, S, KH, D, generator=gen, device=cuda_device).bfloat16()
+    v = torch.randn(B, S, KH, D, generator=gen, device=cuda_device).bfloat16()
+    kv_len = torch.randint(1, S + 1, (B,), generator=gen, device=cuda_device,
+                           dtype=torch.int32)
+    kv_len[0], kv_len[-1] = 1, S
+    views = [(q, k, v)]
+    if KH > 1:
+        views.append((q[:, :, G:], k[:, :, 1:], v[:, :, 1:]))
+    for qq, kk, vv in views:
+        got = fops.flash_decode(qq, kk, vv, kv_len)
+        want = fref.decode_ref(qq, kk, vv, kv_len, D ** -0.5)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
+
+
+def test_flash_decode_refuses_what_it_does_not_take(cuda_device):
+    """float32, head_dim 256, a group of 32, two query tokens and a kv_len
+    of the wrong shape raise before any launch."""
+    def t(*shape, dtype=torch.bfloat16):
+        return torch.zeros(*shape, dtype=dtype, device=cuda_device)
+    kv = torch.ones(2, dtype=torch.int32, device=cuda_device)
+    for q, k, kvl, match in (
+            (t(2, 1, 8, 64, dtype=torch.float32),
+             t(2, 16, 2, 64, dtype=torch.float32), kv, "bfloat16"),
+            (t(2, 1, 8, 256), t(2, 16, 2, 256), kv, "D in"),
+            (t(2, 1, 64, 64), t(2, 16, 2, 64), kv, "groups of at most"),
+            (t(2, 2, 8, 64), t(2, 16, 2, 64), kv, "q \\(B,1,H,D\\)"),
+            (t(2, 1, 8, 64), t(2, 16, 2, 64), kv[:1], "kv_len")):
+        with pytest.raises(ValueError, match=match):
+            FKD.flash_decode(q, k, k, kvl, scale=0.125)
+
+
+def test_decode_graph_replays_its_eager_step_and_counts(cuda_device):
+    """A bf16 granite-shaped model of 40 layers (head_dim 64) served with
+    attn_impl="flash": the engine's captured decode step gives its eager
+    step's tokens and last logits bit for bit; the decode step calls
+    flash_decode once a layer, counted at its warm-up and at its capture
+    (40 each), never at a replay, and no decode call takes the plain
+    path."""
+    from repro_torch.configs import tiny_config
+    from repro_torch.launch.mesh import make_host_mesh_ctx
+    from repro_torch.launch.serve import BatchedEngine, Request
+    from repro_torch.models.api import ModelAPI
+    from repro_torch.models.params import init_params
+    cfg = tiny_config("granite-3-2b").replace(
+        n_layers=40, head_dim=64, compute_dtype="bfloat16",
+        attn_impl="flash")
+    api = ModelAPI(cfg)
+    mctx = make_host_mesh_ctx(cfg)
+    params = init_params(api.param_defs(),
+                         torch.Generator(device=cuda_device).manual_seed(0))
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab, 32, dtype=np.int32)
+               for _ in range(3)]
+    out, logits = {}, {}
+    for compiled in (("prefill", "decode"), ()):
+        eng = BatchedEngine(api, params, mctx, 3, 32, 32 + 6 + 8,
+                            compiled=compiled)
+        fops.reset_launches()
+        reqs = [Request(i, p, 6) for i, p in enumerate(prompts)]
+        eng.run_wave(reqs)
+        torch.cuda.synchronize()
+        counts = fops.launches()
+        steps = eng.steps
+        assert counts["decode_plain"] == 0
+        if compiled:
+            assert counts["decode"] == 2 * cfg.n_layers     # warm-up, capture
+            assert eng.decode_step.graph is not None and steps > 2
+        else:
+            assert counts["decode"] == cfg.n_layers * steps
+        out[bool(compiled)] = [r.out for r in reqs]
+        logits[bool(compiled)] = eng.logits["decode"].clone()
+        del eng
+    assert out[True] == out[False]
+    assert torch.equal(logits[True], logits[False])

@@ -514,4 +514,8 @@ def test_dryrun_matches_eager_step_on_card(kind):
                if k.startswith("repro_torch.")}
     assert kernels == {k: v for k, v in fake["flops_by_op"].items()
                        if k.startswith("repro_torch.")}
-    assert bool(kernels) == (kind != "decode")   # decode keeps the plain path
+    names = {k.split(".")[1] for k in kernels}
+    if kind == "decode":        # the decode kernel, prefill and train flash
+        assert names == {"flash_decode"}
+    else:
+        assert names and "flash_decode" not in names

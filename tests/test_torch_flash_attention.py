@@ -113,4 +113,5 @@ def test_flash_counts_no_launch_on_the_cpu():
     q, k, v = (_torch(a) for a in _inputs(4, 1, 16, 16, 2, 1, 64,
                                           np.float32))
     ops.flash_attention(q, k, v)
-    assert ops.launches() == {"fwd": 0, "bwd": 0, "bwd_softcap": 0}
+    assert ops.launches() == {"fwd": 0, "bwd": 0, "bwd_softcap": 0,
+                              "decode": 0, "decode_plain": 0}
